@@ -1,0 +1,1 @@
+"""asr of the PyTorch port (see the package docstring)."""
