@@ -1,10 +1,12 @@
-"""Jax-free access to the shared tokenizer.
+"""Jax-free access to the shared tokenizer and the numpy DSP.
 
-`speaksense_tpu/models/tokenizer.py` imports only dataclasses and numpy, but
-importing it as `speaksense_tpu.models.tokenizer` runs
-`speaksense_tpu/models/__init__.py`, which imports the JAX model. This module
-loads that one file under a private module name instead, so the port keeps a
-single copy of the BPE and special-token code and never pulls in jax.
+`speaksense_tpu/models/tokenizer.py` and `speaksense_tpu/audio/dsp.py`
+import only the standard library and numpy, but importing them by package
+name runs `speaksense_tpu/models/__init__.py` or
+`speaksense_tpu/audio/__init__.py`, which import the JAX model and the JAX
+mel. This module loads each of those files under a private module name
+instead, so the port keeps a single copy of the BPE, special-token and
+numpy denoise code and never pulls in jax.
 """
 
 from __future__ import annotations
@@ -13,31 +15,33 @@ import importlib.util
 import sys
 from pathlib import Path
 
-_TOKENIZER_PATH = (Path(__file__).resolve().parent.parent
-                   / "speaksense_tpu" / "models" / "tokenizer.py")
-_MODULE_NAME = "speaksense_tpu_torch._tokenizer"
+_JAX_PACKAGE = Path(__file__).resolve().parent.parent / "speaksense_tpu"
 
 
-def _load_tokenizer_module():
-    mod = sys.modules.get(_MODULE_NAME)
+def _load_by_path(module_name: str, path: Path):
+    mod = sys.modules.get(module_name)
     if mod is not None:
         return mod
-    spec = importlib.util.spec_from_file_location(_MODULE_NAME, _TOKENIZER_PATH)
+    spec = importlib.util.spec_from_file_location(module_name, path)
     if spec is None or spec.loader is None:
-        raise ImportError(f"cannot load the shared tokenizer from {_TOKENIZER_PATH}")
+        raise ImportError(f"cannot load the shared module {path}")
     mod = importlib.util.module_from_spec(spec)
     # dataclasses resolve the defining module through sys.modules while the
     # class body runs, so register before executing
-    sys.modules[_MODULE_NAME] = mod
+    sys.modules[module_name] = mod
     try:
         spec.loader.exec_module(mod)
     except BaseException:
-        del sys.modules[_MODULE_NAME]
+        del sys.modules[module_name]
         raise
     return mod
 
 
-tokenizer = _load_tokenizer_module()
+tokenizer = _load_by_path("speaksense_tpu_torch._tokenizer",
+                          _JAX_PACKAGE / "models" / "tokenizer.py")
 Tokenizer = tokenizer.Tokenizer
 TS_RESOLUTION = tokenizer.TS_RESOLUTION
 LANGUAGES = tokenizer.LANGUAGES
+
+# the numpy denoise chain and its noise classifier (host side)
+np_dsp = _load_by_path("speaksense_tpu_torch._np_dsp", _JAX_PACKAGE / "audio" / "dsp.py")

@@ -5,12 +5,18 @@ Covered: random-weight and JAX-parameter construction, log-mel, batched
 window decoding with whisper's temperature-fallback ladder (greedy attempt,
 then best_of sampled candidate rows per pending window), language detection,
 the openai-style long-form seek loop with no-speech skipping and
-previous-text conditioning, and the reference's segment post-processing.
+previous-text conditioning, the reference's segment post-processing, and
+the streaming surface: stream-mode chunks through the greedy slot pool
+(`runtime/slots.py`) with device denoise, the pooled fallback ladder,
+no-speech suppression, conditioning context, session pipelining
+(`submit_stream_chunk`), oversized chunks split into pool-bucket
+sub-windows and the padded tail flush; a sub-bucket chunk without a pool
+takes the window path.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: stream mode and stream-chunk submission, slot serving, beam search,
-word timestamps, VAD segmentation, ggml/HF checkpoint loading, multi-GPU
-sharding and the int8 weight/KV options.
+item: beam search and the beam pool, word timestamps, VAD segmentation,
+ggml/HF checkpoint loading, multi-GPU sharding and the int8 weight/KV
+options.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from speaksense_tpu.asr import postprocess as PP
 from speaksense_tpu.config import EngineConfig
 from speaksense_tpu.utils.metrics import REGISTRY as METRICS
 from speaksense_tpu_torch._shared import Tokenizer
+from speaksense_tpu_torch.audio import dsp as DSP
 from speaksense_tpu_torch.audio import mel as MEL
 from speaksense_tpu_torch.models import decode as D
 from speaksense_tpu_torch.models import whisper as W
@@ -41,9 +48,8 @@ FALLBACK_TEMPS = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 
 _LATER = {
     "int8": "int8 paths (int8 weights, int8 cross-KV, int8 self-KV)",
-    "slots": "slot pool with device denoise and mel",
     "beam": "beam search and the beam pool",
-    "stream": "transcribe_audio_vad, stream mode and word_timestamps",
+    "stream": "transcribe_audio_vad and word_timestamps",
     "ckpt": "ggml and HF checkpoint loading",
     "multi": "multi-GPU",
 }
@@ -57,11 +63,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class EngineState:
-    """Per-stream host-side context (non-stream mode keeps only the
-    detected language and the per-stream lock)."""
+    """Per-stream host-side context: the detected language, the stream's
+    conditioning tokens and the per-stream lock."""
 
     language: str | None = None
+    context_tokens: list = field(default_factory=list)  # stream conditioning
     lock: threading.Lock = field(default_factory=threading.Lock)
+    # conditioned-pipelining bound: chunks of this stream submitted but not
+    # yet settled with conditioning active (see submit_stream_chunk)
+    inflight_conditioned: int = 0
 
 
 def needs_fallback_retry(cand: dict, config: EngineConfig) -> bool:
@@ -75,6 +85,82 @@ def needs_fallback_retry(cand: dict, config: EngineConfig) -> bool:
             or (cand["avg_logprob"] < config.logprob_thold)
             or (cand["n_sampled"] > 32
                 and cand.get("token_entropy", 99.0) < config.entropy_thold))
+
+
+class _PendingChunk:
+    """Handle for one in-flight stream chunk (`submit_stream_chunk`):
+    settle() blocks until the slot pool finishes the chunk's decode, then
+    runs the pooled ladder and the host postprocess. Settle calls for one
+    stream happen in submission order from a single thread: that order, not
+    a lock, orders the conditioning-context updates."""
+
+    __slots__ = ("engine", "state", "future", "n_samples", "params", "language",
+                 "conditioned", "retry")
+
+    def __init__(self, engine, state, future, n_samples, params, language,
+                 conditioned: bool = False, retry=None):
+        self.engine = engine
+        self.state = state
+        self.future = future
+        self.n_samples = n_samples
+        self.params = params
+        self.language = language
+        self.conditioned = conditioned
+        # retry(temperature) -> list of raw candidates: resubmits the
+        # chunk's audio for the temperature-fallback ladder
+        self.retry = retry
+
+    def settle(self) -> TranscribeResult:
+        try:
+            raw = self.engine._pool_quality_gate(self.future.result(), self.retry)
+            result = self.engine._finish_slot_chunk(raw, self.n_samples, self.params,
+                                                    self.language, self.state)
+        finally:
+            if self.conditioned and self.state is not None:
+                with self.state.lock:
+                    self.state.inflight_conditioned -= 1
+        if self.state is not None:
+            self.state.language = result.language or self.state.language
+        return result
+
+
+class _PendingMultiChunk:
+    """Handle for one oversized in-flight stream chunk: a chunk longer than
+    the pool's bucket rides the pool as pool-bucket sub-windows admitted
+    concurrently, each with the pool's token budget. settle() joins them in
+    order and merges their segments onto the chunk's timeline. The cuts
+    have no overlap; the transport's chunk overlap heals boundary words."""
+
+    __slots__ = ("engine", "state", "futures", "piece_samples", "n_samples",
+                 "params", "language", "conditioned", "retries")
+
+    def __init__(self, engine, state, futures, piece_samples, n_samples,
+                 params, language, conditioned: bool = False, retries=None):
+        self.engine = engine
+        self.state = state
+        self.futures = futures
+        self.piece_samples = piece_samples
+        self.n_samples = n_samples
+        self.params = params
+        self.language = language
+        self.conditioned = conditioned
+        self.retries = retries       # per-piece retry(temperature) closures
+
+    def settle(self) -> TranscribeResult:
+        try:
+            raws = [f.result() for f in self.futures]
+            retries = self.retries or [None] * len(raws)
+            raws = [self.engine._pool_quality_gate(r, rt) for r, rt in zip(raws, retries)]
+            result = self.engine._finish_slot_chunk_multi(
+                raws, self.piece_samples, self.n_samples, self.params,
+                self.language, self.state)
+        finally:
+            if self.conditioned and self.state is not None:
+                with self.state.lock:
+                    self.state.inflight_conditioned -= 1
+        if self.state is not None:
+            self.state.language = result.language or self.state.language
+        return result
 
 
 class WhisperEngine(AsrEngine):
@@ -96,8 +182,9 @@ class WhisperEngine(AsrEngine):
                 suppress_non_speech=sns, allow_speaker_turn=turn), device=self.device)
             for sns in (True, False) for turn in (True, False)
         }
-        # sampling noise for the t > 0 fallback attempts
+        # sampling noise for the t > 0 fallback attempts (window and pool)
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self._slot_server = None
 
     # ------------------------------------------------------------------ load
 
@@ -152,6 +239,13 @@ class WhisperEngine(AsrEngine):
         return MEL.log_mel_spectrogram(a[:, :target], n_mels=self.dims.n_mels,
                                        filters=self.mel_filters, pad_to_chunk=False,
                                        device=self.device)
+
+    @staticmethod
+    def _mel_bucket(t_mel: int) -> int:
+        for b in (512, 1024, 3000):
+            if t_mel <= b:
+                return b
+        return 3000
 
     # --------------------------------------------------------------- decoding
 
@@ -364,7 +458,8 @@ class WhisperEngine(AsrEngine):
     def _postprocess(self, raw_segments: list[dict], params: AsrParams,
                      language: str | None, n_tokens: int = 0) -> TranscribeResult:
         """Reference segment pipeline: promo filter, CJK punctuation,
-        speaker turns, short-segment merging."""
+        speaker turns, short-segment merging, and in stream mode only the
+        last segment."""
         segments: list[TranscribeSegment] = []
         speaker = 0
         prev_turn = False
@@ -382,6 +477,11 @@ class WhisperEngine(AsrEngine):
                                               start=s["start"], end=s["end"],
                                               words=s.get("words")))
         segments = self._merge_short_segments(segments, params.min_segment_length)
+        if params.stream_mode and segments:
+            # the reference keeps only the final segment in stream mode
+            last = segments[-1]
+            return TranscribeResult(segments=[last], full_text=last.text,
+                                    language=language, n_tokens=n_tokens)
         return TranscribeResult(segments=segments, full_text="".join(s.text for s in segments),
                                 language=language, n_tokens=n_tokens)
 
@@ -420,18 +520,300 @@ class WhisperEngine(AsrEngine):
 
     def transcribe_with_state(self, state: EngineState, audio, params: AsrParams,
                               decode_window=None) -> TranscribeResult:
-        if params.stream_mode:
-            raise _not_ported("stream mode", "stream")
-        with state.lock:
+        with state.lock:  # the reference serializes per stream
             if params.language is None and state.language:
                 params = AsrParams(**{**params.__dict__, "language": state.language})
-            result = self.transcribe_audio(np.asarray(audio, np.float32), params,
-                                           decode_window)
+            if params.stream_mode:
+                result = self._transcribe_stream_chunk(audio, params, decode_window,
+                                                       state=state)
+            else:
+                result = self.transcribe_audio(np.asarray(audio, np.float32), params,
+                                               decode_window)
             state.language = result.language or state.language
             return result
 
-    def enable_slot_serving(self, *args, **kwargs) -> None:
-        raise _not_ported("slot serving", "slots")
+    # ---------------------------------------------------------- slot serving
 
-    def submit_stream_chunk(self, state, audio, params: AsrParams, pad_to_bucket: bool = False):
-        raise _not_ported("stream-chunk submission", "stream")
+    def enable_slot_serving(self, n_slots: int | None = None, t_mel: int = 512,
+                            max_new: int = 96, int8_kv: bool | None = None,
+                            self_int8: bool | None = None, max_prompt: int = 16,
+                            beam_size: int | None = None) -> None:
+        """Route stream chunks through the token-level slot pool
+        (`runtime/slots.py`): concurrent streams join and leave the decode
+        batch at token granularity. max_prompt=16 fits plain SOT prompts;
+        a larger one (e.g. 64) lets pooled streams carry previous-text
+        conditioning. The pool holds one mel bucket (t_mel) but serves
+        every chunk size: shorter chunks ride zero-padded when asked
+        (`pad_to_bucket`), oversized ones as split sub-windows. int8 pools
+        and beam pools are not ported."""
+        from speaksense_tpu_torch.runtime.slots import StreamingDecodeServer
+
+        if beam_size is None:
+            beam_size = self.config.beam_size or 1
+        self._slot_server = StreamingDecodeServer(
+            self, n_slots=n_slots or self.config.stream_slots, t_mel=t_mel, max_new=max_new,
+            int8_kv=self.config.cross_kv_int8 if int8_kv is None else int8_kv,
+            self_int8=bool(self_int8), max_prompt=max_prompt, beam_size=beam_size)
+
+    @property
+    def device_denoise(self) -> bool:
+        """True when stream chunks run the denoise chain on the device
+        (inside the slot pool's admission): StreamSession then skips its
+        host numpy denoise and sets AsrParams.denoise instead."""
+        return self._slot_server is not None
+
+    def disable_slot_serving(self) -> None:
+        if self._slot_server is not None:
+            self._slot_server.stop()
+            self._slot_server = None
+
+    def _pool_candidate(self, raw: dict) -> dict:
+        """Host-side quality features of one pooled decode result, as
+        decode_windows computes them for a window row."""
+        n = int(raw["n_sampled"])
+        text = self.tokenizer.decode(raw["tokens"][:n])
+        return {**raw, "text": text,
+                "compression_ratio": PP.compression_ratio(text),
+                "token_entropy": PP.token_entropy(raw["tokens"][:n]),
+                "temperature": float(raw.get("temperature", 0.0))}
+
+    def _pool_quality_gate(self, raw: dict, retry) -> dict:
+        """whisper's temperature-fallback ladder on a pooled chunk.
+        retry(temperature) resubmits the chunk's audio as best_of concurrent
+        pool decodes at that temperature (per-slot temperatures: retries
+        stay continuously batched with live traffic); the best avg_logprob
+        wins (openai best_of rule), and a chunk that still fails at t = 1.0
+        keeps its last attempt, as decode_windows does."""
+        cand = self._pool_candidate(raw)
+        if retry is None:
+            return cand
+        attempt = 0
+        while (needs_fallback_retry(cand, self.config)
+               and cand["temperature"] < FALLBACK_TEMPS[-1]
+               and attempt + 1 < len(FALLBACK_TEMPS)):
+            attempt += 1
+            t = FALLBACK_TEMPS[attempt]
+            METRICS.inc("asr_fallback_retries_total")
+            METRICS.inc("asr_pool_fallback_retries_total")
+            try:
+                cands = [self._pool_candidate(c) for c in retry(t)]
+            except Exception as e:
+                # a failed resubmission (pool reset, server stopping) keeps
+                # the candidate the chunk already holds, as the window
+                # ladder would
+                log.warning("pool fallback retry at t=%.1f failed; keeping last "
+                            "attempt: %s", t, e)
+                break
+            if not cands:
+                break
+            cand = max(cands, key=lambda c: c["avg_logprob"])
+        return cand
+
+    def _pool_retry_factory(self, server, audio, language, task, context, denoise):
+        """The retry(temperature) closure of one pooled chunk (see
+        _pool_quality_gate): best_of concurrent pool resubmissions of the
+        chunk's submit-time audio at the rung's temperature."""
+        best_of = max(1, int(self.config.best_of))
+
+        def retry(temp: float) -> list[dict]:
+            futs = [server.submit_audio(audio, language=language, task=task,
+                                        context=context, denoise=denoise, temperature=temp)
+                    for _ in range(best_of)]
+            return [f.result() for f in futs]
+
+        return retry
+
+    def _silence_suppressed(self, raw: dict) -> bool:
+        """The no-speech gate of every stream path: no_speech_prob over its
+        threshold and a poor avg_logprob (whisper's silence-hallucination
+        suppression). Counts asr_no_speech_suppressed_total."""
+        if (float(raw.get("no_speech_prob", 0.0)) > self.config.no_speech_thold
+                and float(raw.get("avg_logprob", 0.0)) < self.config.logprob_thold):
+            METRICS.inc("asr_no_speech_suppressed_total")
+            return True
+        return False
+
+    def _update_stream_context(self, state: EngineState | None, text_toks: list[int],
+                               hot: bool) -> None:
+        """Conditioning context of stream chunks. hot (a window decoded at
+        temperature > 0.5) resets it: openai's prompt_reset rule."""
+        if state is None:
+            return
+        if hot:
+            state.context_tokens = []
+            return
+        cap = self._slot_server.pool.max_prompt if self._slot_server is not None else 16
+        state.context_tokens = (state.context_tokens + text_toks)[-cap:]
+
+    def _finish_slot_chunk(self, raw: dict, n_samples: int, params: AsrParams,
+                           language: str | None, state: EngineState | None) -> TranscribeResult:
+        """Host postprocess of one pooled stream chunk: tokens to segments
+        clamped to the chunk, conditioning context, and the reference
+        segment pipeline."""
+        if self._silence_suppressed(raw):
+            return TranscribeResult(segments=[], full_text="", language=language,
+                                    n_tokens=int(raw["n_sampled"]))
+        window_dur = n_samples / SAMPLE_RATE
+        segs, _ = D.segments_from_tokens(raw["tokens"], raw["n_sampled"], self.tokenizer)
+        for s in segs:
+            s["end"] = min(s["end"], window_dur)
+            s["start"] = min(s["start"], s["end"])
+        text_toks = [int(t) for t in raw["tokens"][: raw["n_sampled"]]
+                     if t < self.tokenizer.eot]
+        self._update_stream_context(state, text_toks,
+                                    hot=float(raw.get("temperature", 0.0)) > 0.5)
+        return self._postprocess(segs, params, language, n_tokens=int(raw["n_sampled"]))
+
+    def _finish_slot_chunk_multi(self, raws: list[dict], piece_samples: int, n_samples: int,
+                                 params: AsrParams, language: str | None,
+                                 state: EngineState | None) -> TranscribeResult:
+        """Host postprocess of one oversized chunk decoded as pool-bucket
+        sub-windows: each piece's segments clamped to the piece and offset
+        onto the chunk's timeline, then one segment pipeline over all."""
+        segs_all: list[dict] = []
+        text_toks: list[int] = []
+        n_tokens = 0
+        hot = any(float(r.get("temperature", 0.0)) > 0.5 for r in raws)
+        for i, raw in enumerate(raws):
+            n_tokens += int(raw["n_sampled"])
+            if self._silence_suppressed(raw):
+                continue
+            off = i * piece_samples / SAMPLE_RATE
+            dur = min(piece_samples, n_samples - i * piece_samples) / SAMPLE_RATE
+            segs, _ = D.segments_from_tokens(raw["tokens"], raw["n_sampled"], self.tokenizer)
+            for s in segs:
+                s["end"] = min(s["end"], dur) + off
+                s["start"] = min(s["start"], s["end"] - off) + off
+            segs_all.extend(segs)
+            text_toks.extend(int(t) for t in raw["tokens"][: raw["n_sampled"]]
+                             if t < self.tokenizer.eot)
+        self._update_stream_context(state, text_toks, hot=hot)
+        return self._postprocess(segs_all, params, language, n_tokens=n_tokens)
+
+    def submit_stream_chunk(self, state: EngineState | None, audio, params: AsrParams,
+                            pad_to_bucket: bool = False):
+        """Nonblocking stream-chunk submission for session-level pipelining.
+        Returns a handle whose settle() gives the TranscribeResult, or None
+        when the chunk must take the sequential transcribe_with_state path:
+        no slot pool, a sub-bucket chunk without pad_to_bucket, or the bound
+        of two conditioned chunks of one stream in flight. Oversized chunks
+        ride the pool as sub-windows (_PendingMultiChunk). s16 PCM passes
+        through unscaled (the pool dequantizes on the device)."""
+        if not params.stream_mode:
+            return None
+        server = self._slot_server
+        if server is None:
+            return None
+        audio = np.asarray(audio).reshape(-1)
+        if audio.dtype != np.int16:
+            audio = audio.astype(np.float32, copy=False)
+        bucket = self._mel_bucket(max(1, audio.size // MEL.HOP_LENGTH))
+        oversized = bucket > server.pool.t_mel
+        if bucket != server.pool.t_mel and not oversized and not pad_to_bucket:
+            return None
+        context = None
+        conditioned = False
+        if (state is not None and params.condition_on_previous_text
+                and server.pool.max_prompt > 16):
+            # bounded conditioned pipelining: the prompt carries the
+            # context at submit time, so with two chunks of one stream in
+            # flight chunk k+1's prompt may lag chunk k's text by one chunk
+            with state.lock:
+                if state.inflight_conditioned >= 2:
+                    return None
+                state.inflight_conditioned += 1
+                context = list(state.context_tokens) or None
+            conditioned = True
+        language = params.language or (state.language if state else None) or "en"
+
+        def mk_retry(a):
+            return self._pool_retry_factory(server, a, language, params.task, context,
+                                            params.denoise)
+
+        piece = server.pool.t_mel * MEL.HOP_LENGTH
+        try:
+            if oversized:
+                futs = [server.submit_audio(audio[i:i + piece], language=language,
+                                            task=params.task, context=context,
+                                            denoise=params.denoise)
+                        for i in range(0, audio.size, piece)]
+            else:
+                fut = server.submit_audio(audio, language=language, task=params.task,
+                                          context=context, denoise=params.denoise)
+        except Exception:
+            if conditioned:
+                with state.lock:
+                    state.inflight_conditioned -= 1
+            raise
+        if oversized:
+            retries = [mk_retry(audio[i:i + piece]) for i in range(0, audio.size, piece)]
+            return _PendingMultiChunk(self, state, futs, piece, audio.size, params, language,
+                                      conditioned=conditioned, retries=retries)
+        return _PendingChunk(self, state, fut, audio.size, params, language,
+                             conditioned=conditioned, retry=mk_retry(audio))
+
+    def _transcribe_stream_chunk(self, audio, params: AsrParams, decode_window=None,
+                                 state: EngineState | None = None) -> TranscribeResult:
+        """One stream chunk (about 5 s), settled here: through the slot pool
+        when its bucket is the pool's (oversized chunks as sub-windows),
+        otherwise through the window path at the chunk's mel bucket."""
+        audio = np.asarray(audio, np.float32).reshape(-1)
+        bucket = self._mel_bucket(max(1, audio.size // MEL.HOP_LENGTH))
+        language = params.language or "en"
+        server = self._slot_server
+        if server is not None and bucket >= server.pool.t_mel:
+            # previous-text conditioning rides the prompt only on a pool
+            # built with max_prompt > 16 (the reference's gate)
+            context = None
+            if (state is not None and params.condition_on_previous_text
+                    and server.pool.max_prompt > 16):
+                context = list(state.context_tokens) or None
+            piece = server.pool.t_mel * MEL.HOP_LENGTH
+            oversized = bucket > server.pool.t_mel
+            starts = range(0, audio.size, piece) if oversized else range(1)
+            futs = [server.submit_audio(audio[i:i + piece], language=language,
+                                        task=params.task, context=context,
+                                        denoise=params.denoise)
+                    for i in starts]
+            raws = [self._pool_quality_gate(
+                        f.result(), self._pool_retry_factory(server, audio[i:i + piece],
+                                                             language, params.task, context,
+                                                             params.denoise))
+                    for i, f in zip(starts, futs)]
+            if oversized:
+                return self._finish_slot_chunk_multi(raws, piece, audio.size, params,
+                                                     language, state)
+            return self._finish_slot_chunk(raws[0], audio.size, params, language, state)
+        if server is not None:
+            # a sub-bucket chunk on a pool built above the smallest bucket
+            # decodes through the smaller window program
+            METRICS.inc("asr_slot_bucket_fallbacks_total")
+        if params.denoise:
+            # the pool would have denoised on the device; honour the
+            # request on the host for the window path
+            audio = DSP.denoise_audio(audio, DSP.DenoiseConfig(post_gain=1.0))
+        mel = self.compute_mel(audio, pad_to=bucket)
+        if decode_window is None:
+            def decode_window(mel, lang, task, sns, speaker_diarization=False,
+                              temperature=0.0):
+                return self.decode_windows(
+                    mel, lang, task=task, suppress_non_speech=sns,
+                    speaker_diarization=speaker_diarization,
+                    temperatures=[temperature] if temperature else None,
+                    max_new_tokens=96)[0]
+        hook_params = set(inspect.signature(decode_window).parameters)
+        kw = {}
+        if "speaker_diarization" in hook_params:
+            kw["speaker_diarization"] = params.speaker_diarization
+        if "temperature" in hook_params:
+            kw["temperature"] = params.temperature
+        res = decode_window(mel, language, params.task, params.suppress_non_speech, **kw)
+        if self._silence_suppressed(res):
+            return TranscribeResult(segments=[], full_text="", language=language,
+                                    n_tokens=int(res["n_sampled"]))
+        window_dur = audio.size / SAMPLE_RATE
+        segs, _ = D.segments_from_tokens(res["tokens"], res["n_sampled"], self.tokenizer)
+        for s in segs:
+            s["end"] = min(s["end"], window_dur)
+            s["start"] = min(s["start"], s["end"])
+        return self._postprocess(segs, params, language, n_tokens=int(res["n_sampled"]))

@@ -10,6 +10,9 @@ on a GPU the f32 matmuls must not round through TF32, so
 and `torch.backends.cudnn.allow_tf32 = False` before it runs on a CUDA
 tensor. There is no kernel here to port (the reference's Pallas mel kernel
 was deleted); `torch.matmul` is the plain version.
+
+The slot pool's admission uploads s16 PCM as it came off the wire and
+dequantizes it on the device (`pcm_to_f32`) before the log-mel.
 """
 
 from __future__ import annotations
@@ -78,6 +81,16 @@ def _dft_basis(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
     cos_b = (np.cos(angle) * window[:, None]).astype(np.float32)
     sin_b = (np.sin(angle) * window[:, None]).astype(np.float32)
     return cos_b, sin_b
+
+
+def pcm_to_f32(audio: torch.Tensor) -> torch.Tensor:
+    """s16 PCM -> f32 on the tensor's device with the reference's 1/32767
+    scaling (the constant of `speaksense_tpu.serving.stream.pcm_i16_to_f32`
+    and of the JAX pool's admission, `slots.py:305-309`); other dtypes are
+    cast to f32 unscaled."""
+    if audio.dtype == torch.int16:
+        return audio.float() / 32767.0
+    return audio.float()
 
 
 def log_mel_spectrogram(audio, n_mels: int = 80, filters: np.ndarray | None = None,

@@ -96,10 +96,14 @@ def apply_logit_rules(logits: torch.Tensor, cfg: RuleConfig, suppress_mask: torc
 
 
 def _sample(logits: torch.Tensor, temperature: torch.Tensor,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """Greedy where temperature == 0, Gumbel-max elsewhere; temperature (B,)."""
+            generator: torch.Generator | None, hot: bool | None = None) -> torch.Tensor:
+    """Greedy where temperature == 0, Gumbel-max elsewhere; temperature (B,).
+    hot says from the host whether any row has temperature > 0; None reads
+    it from the device, which waits for the device."""
     t = temperature.clamp(min=0.0)[:, None]
-    if not bool((t > 0).any()):
+    if hot is None:
+        hot = bool((t > 0).any())
+    if not hot:
         return logits.argmax(dim=-1)
     u = torch.rand(logits.shape, generator=generator, device=logits.device) + 1e-20
     gumbel = -torch.log(-torch.log(u))
@@ -128,9 +132,10 @@ def decode_loop(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
     sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
     logits = first_logits
+    hot = bool((temperature > 0).any())     # read once, not at every step
     for step in range(L):
         filtered = apply_logit_rules(logits, cfg, suppress_mask, n_sampled, last, penult, last_ts)
-        tok = _sample(filtered, temperature, generator)
+        tok = _sample(filtered, temperature, generator, hot)
         tok = torch.where(finished, cfg.eot, tok)
         lp = torch.log_softmax(filtered, dim=-1)
         tok_lp = lp.gather(-1, tok[:, None])[:, 0]
@@ -178,6 +183,90 @@ def transcribe_window(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Te
     out["avg_logprob"] = out["sum_logprob"] / (out["n_sampled"] + 1).float()
     out["no_speech_prob"] = no_speech_prob
     return out
+
+
+@dataclass
+class PoolState:
+    """Device state of a slot pool of S slots: the pool pages and, per
+    slot, the sampled tokens (S, max_new) (EOT-padded), the logits the next
+    step samples from (S, V), the rule state, the running log-probability
+    sum, the no-speech probability read at admission, the sampling
+    temperature, and the true and padded prompt lengths that place the
+    slot's keys (`W.pool_mask`). Rows of free slots hold stale but finite
+    values and are masked by `active`."""
+
+    pages: W.KVCache
+    tokens: torch.Tensor
+    last_logits: torch.Tensor
+    n_sampled: torch.Tensor
+    last: torch.Tensor
+    penult: torch.Tensor
+    last_ts: torch.Tensor
+    active: torch.Tensor
+    sum_lp: torch.Tensor
+    ns_prob: torch.Tensor
+    temp: torch.Tensor
+    plen: torch.Tensor
+    ppad: torch.Tensor
+
+    @classmethod
+    def empty(cls, model: W.Whisper, n_slots: int, max_new: int, t_text: int,
+              n_audio_ctx: int, eot: int, device) -> "PoolState":
+        def z(dtype, *shape):
+            return torch.zeros((n_slots, *shape), dtype=dtype, device=device)
+
+        return cls(pages=W.init_pool_pages(model, n_slots, t_text, n_audio_ctx, device),
+                   tokens=torch.full((n_slots, max_new), eot, dtype=torch.long, device=device),
+                   last_logits=z(torch.float32, model.dims.n_vocab),
+                   n_sampled=z(torch.long), last=z(torch.long), penult=z(torch.long),
+                   last_ts=z(torch.long), active=z(torch.bool), sum_lp=z(torch.float32),
+                   ns_prob=z(torch.float32), temp=z(torch.float32),
+                   plen=torch.ones(n_slots, dtype=torch.long, device=device),
+                   ppad=torch.ones(n_slots, dtype=torch.long, device=device))
+
+
+@torch.no_grad()
+def pool_step(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor, st: PoolState,
+              generator: torch.Generator | None, hot: bool) -> torch.Tensor:
+    """One token for every slot of the pool, in place on `st` (the JAX
+    `SlotPool._build_step` body): logit rules, greedy argmax or, for slots
+    with temperature > 0, Gumbel-max sampling (hot: whether any slot is hot,
+    kept on the host so an all-greedy step never waits for the device), the
+    token's log-probability, the token write, the model step at each slot's
+    own position and column, and retirement at EOT or at the max_new cap.
+    A retired slot's temperature is cleared. Returns the (S,) bool of slots
+    that finished at this step."""
+    filtered = apply_logit_rules(st.last_logits, cfg, suppress_mask, st.n_sampled,
+                                 st.last, st.penult, st.last_ts)
+    tok = _sample(filtered, st.temp, generator, hot)
+    tok = torch.where(st.active, tok, cfg.eot)
+    tok_lp = torch.log_softmax(filtered, dim=-1).gather(-1, tok[:, None])[:, 0]
+    newly_done = st.active & (tok == cfg.eot)
+    still = st.active & ~newly_done
+
+    S, max_new = st.tokens.shape
+    rows = torch.arange(S, device=tok.device)
+    write = st.n_sampled.clamp(max=max_new - 1)
+    st.tokens[rows, write] = torch.where(st.active, tok, st.tokens[rows, write])
+    # the token sits at position plen + n and its K/V goes to column
+    # ppad + n (n = steps since admission while the slot is active); a
+    # retired row's column is clamped and its writes are never read
+    t_text = st.pages.self_k.shape[3]
+    col = (st.ppad + st.n_sampled).clamp(max=t_text - 1)
+    pos = (st.plen + st.n_sampled).clamp(max=model.dims.n_text_ctx - 1)
+    mask = W.pool_mask(t_text, st.plen, st.ppad, col)
+    st.last_logits = W.decode_step_pool(model, tok, st.pages, pos, col, mask)
+
+    hit_cap = still & (st.n_sampled + 1 >= max_new)
+    st.penult = torch.where(still, st.last, st.penult)
+    st.last = torch.where(still, tok, st.last)
+    st.last_ts = torch.where(still & (tok >= cfg.ts_begin), tok, st.last_ts)
+    st.n_sampled = st.n_sampled + still.long()
+    st.sum_lp = st.sum_lp + torch.where(st.active, tok_lp, 0.0)
+    finished = newly_done | hit_cap
+    st.active = st.active & ~finished
+    st.temp = torch.where(st.active, st.temp, 0.0)
+    return finished
 
 
 @torch.no_grad()

@@ -7,15 +7,25 @@ are plain functions on tensors with the JAX names (`encode`,
 `compute_cross_kv`, `decode_prefill`, `decode_step`, `_decoder_tail`).
 
 Numerics follow the reference: matmul weights in the compute dtype, layer
-norms, biases and logits in f32, f32 accumulation in every linear with the
-result cast back to the activation dtype, attention softmax in f32 with
-masked logits at -1e30.
+norms, biases and logits in f32, attention softmax in f32 with masked logits
+at -1e30. The encoder carries f32 activations, as the JAX engine does (its
+mel is f32 and its products cast the weights to the activation dtype): the
+mel, conv stem, residual stream, layer norms, bias adds and GELU stay f32,
+and each product takes operands in the weight dtype with f32 accumulation
+and an f32 result (`_mm`), which is what the TPU's default precision makes
+of the JAX engine's f32 products. `encode` returns f32 states; only the
+flash kernel's q/k/v are cast to the weight dtype. The decoder runs in the
+compute dtype with f32 accumulation in every linear and the result cast
+back to the activation dtype, as the reference's decoder does.
 
 Layouts at the public functions are the JAX ones: activations (B, T, d),
 attention operands (B, H, T, Dh), mel (B, T_mel, n_mels). Linear weights are
 stored PyTorch-style (out, in); the conv stem (out, in, k). The decode cache
 is the port's own: a (L, B, H, T_cap, Dh) self-KV tensor written in place at
-column `gen_base + step`, and (L, B, H, A, Dh) cross-KV.
+column `gen_base + step`, and (L, B, H, A, Dh) cross-KV. The slot pool's
+pages use the same layout with one row per slot; each slot writes its own
+column (`decode_step_pool`), so the reference's ring buffer and circular
+pages, which exist for XLA on the TPU, are not needed.
 """
 
 from __future__ import annotations
@@ -292,6 +302,26 @@ def _linear(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     return y
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ wᵀ with x rounded to w's dtype, f32 accumulation and an f32
+    result. On the card a bf16 product goes to cuBLAS with an f32 output;
+    on the CPU the bf16-rounded operands are multiplied in f32, which is
+    the same arithmetic."""
+    a = x.to(w.dtype)
+    if w.dtype == torch.float32:
+        return F.linear(a, w)
+    if a.is_cuda:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.view(*a.shape[:-1], w.shape[0])
+    return F.linear(a.float(), w.float())
+
+
+def _linear_f32(x: torch.Tensor, lin: Linear) -> torch.Tensor:
+    """(x @ Wᵀ + b) in f32 (`_mm` and an f32 bias): the encoder's linear."""
+    y = _mm(x, lin.weight)
+    return y if lin.bias is None else y + lin.bias
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
@@ -325,30 +355,36 @@ def _mlp(x: torch.Tensor, blk: EncoderBlock) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _conv1d(x: torch.Tensor, conv: Conv1d) -> torch.Tensor:
-    """(B, T, C_in) -> (B, T', C_out), padding 1, the whisper stem."""
-    y = F.conv1d(x.transpose(1, 2), conv.weight, None, stride=conv.stride, padding=1)
-    return (y.transpose(1, 2).float() + conv.bias).to(x.dtype)
+    """(B, T, C_in) f32 -> (B, T', C_out) f32, kernel 3, padding 1, the
+    whisper stem: the taps are unfolded into one product (`_mm`) with the
+    (out, in·k) weight, then the f32 bias."""
+    xp = F.pad(x.to(conv.weight.dtype), (0, 0, 1, 1))       # pad time by 1
+    taps = xp.unfold(1, 3, conv.stride)                     # (B, T', C_in, 3)
+    y = _mm(taps.reshape(*taps.shape[:2], -1), conv.weight.reshape(conv.weight.shape[0], -1))
+    return y + conv.bias
 
 
 @torch.no_grad()
 def encode(model: Whisper, mel: torch.Tensor, n_ctx_out: int | None = None) -> torch.Tensor:
-    """mel (B, T_mel, n_mels) -> encoder states (B, n_ctx_out, d).
+    """mel (B, T_mel, n_mels) -> f32 encoder states (B, n_ctx_out, d).
 
-    n_ctx_out defaults to T_mel // 2. The self-attention runs through
-    `flash_attention_full`: the CUDA kernel on the card, its plain version
-    on the CPU."""
+    n_ctx_out defaults to T_mel // 2. Activations stay f32 (module
+    docstring). The self-attention runs through `flash_attention_full` on
+    q/k/v in the weight dtype: the CUDA kernel on the card, its plain
+    version on the CPU; its output enters the f32 residual through `o`."""
     enc = model.encoder
-    x = mel.to(model.dtype)
-    x = _gelu(_conv1d(x, enc.conv1))
+    x = _gelu(_conv1d(mel.float(), enc.conv1))
     x = _gelu(_conv1d(x, enc.conv2))
     t = x.shape[1] if n_ctx_out is None else n_ctx_out
-    x = x[:, :t] + enc.pos[:t]
+    x = x[:, :t] + enc.pos[:t].float()
     n_head = model.dims.n_audio_head
+    d = x.shape[-1]
     for blk in enc.blocks:
-        h = _ln(x, blk.attn_ln)
-        q, k, v = _qkv_proj(h, blk, n_head)
-        x = x + _linear(_merge_heads(flash_attention_full(q, k, v)), blk.o)
-        x = _mlp(x, blk)
+        qkv = _linear_f32(_ln(x, blk.attn_ln), blk.qkv).to(model.dtype)
+        q, k, v = (_split_heads(qkv[..., i * d:(i + 1) * d], n_head) for i in range(3))
+        x = x + _linear_f32(_merge_heads(flash_attention_full(q, k, v)), blk.o)
+        h = _ln(x, blk.mlp_ln)
+        x = x + _linear_f32(_gelu(_linear_f32(h, blk.fc1)), blk.fc2)
     return _ln(x, enc.ln_post)
 
 
@@ -370,13 +406,15 @@ class KVCache:
 
 @torch.no_grad()
 def compute_cross_kv(model: Whisper, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Encoder states -> per-layer cross-attention K/V, (L, B, H, A, Dh) each
-    in the compute dtype. Computed once per window batch."""
+    """f32 encoder states -> per-layer cross-attention K/V, (L, B, H, A, Dh)
+    each, computed in f32 (`_linear_f32`) and stored in the compute dtype,
+    as the reference's `compute_cross_kv(..., dtype=bf16)`. Computed once
+    per window batch or slot admission."""
     n_head = model.dims.n_text_head
     ks, vs = [], []
     for blk in model.decoder.blocks:
-        ks.append(_split_heads(_linear(enc_out, blk.ck), n_head))
-        vs.append(_split_heads(_linear(enc_out, blk.cv), n_head))
+        ks.append(_split_heads(_linear_f32(enc_out, blk.ck).to(model.dtype), n_head))
+        vs.append(_split_heads(_linear_f32(enc_out, blk.cv).to(model.dtype), n_head))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -398,18 +436,25 @@ def _decoder_tail(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), dec.tok_emb.float())
 
 
-def _decoder_blocks(model: Whisper, x: torch.Tensor, cache: KVCache, col0: int,
-                    key_end: int, mask: torch.Tensor) -> torch.Tensor:
+def _decoder_blocks(model: Whisper, x: torch.Tensor, cache: KVCache,
+                    col0: int | torch.Tensor, key_end: int,
+                    mask: torch.Tensor) -> torch.Tensor:
     """Run the decoder blocks on x (B, P, d): write this call's self K/V at
-    columns [col0, col0 + P) and attend over columns [0, key_end) under
-    `mask` (broadcastable to (B, 1, P, key_end), True = keep)."""
+    columns [col0, col0 + P), or, when col0 is a (B,) tensor and P == 1, row
+    b's at its own column col0[b] (the slot pool); attend over columns
+    [0, key_end) under `mask` (broadcastable to (B, 1, P, key_end),
+    True = keep)."""
     n_head = model.dims.n_text_head
     P = x.shape[1]
+    if isinstance(col0, int):
+        dst = (slice(None), slice(None), slice(col0, col0 + P))
+    else:
+        dst = (torch.arange(x.shape[0], device=x.device), slice(None), col0)
     for i, blk in enumerate(model.decoder.blocks):
         h = _ln(x, blk.attn_ln)
         q, k, v = _qkv_proj(h, blk, n_head)
-        cache.self_k[i, :, :, col0:col0 + P] = k
-        cache.self_v[i, :, :, col0:col0 + P] = v
+        cache.self_k[i][dst] = k if isinstance(col0, int) else k[:, :, 0]
+        cache.self_v[i][dst] = v if isinstance(col0, int) else v[:, :, 0]
         attn = flash_attention_ref(q, cache.self_k[i, :, :, :key_end],
                                    cache.self_v[i, :, :, :key_end], mask)
         x = x + _linear(_merge_heads(attn), blk.o)
@@ -452,4 +497,69 @@ def decode_step(model: Whisper, token: torch.Tensor, cache: KVCache, step: int,
     k_idx = torch.arange(col + 1, device=token.device)
     mask = (k_idx[None, :] < prompt_len[:, None]) | (k_idx[None, :] >= gen_base)
     x = _decoder_blocks(model, x, cache, col, col + 1, mask[:, None, None, :])
+    return _decoder_tail(model, x)[:, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# slot-pool decoding: one page row per slot, each slot at its own position
+# ---------------------------------------------------------------------------
+
+def init_pool_pages(model: Whisper, n_slots: int, t_text: int, n_audio_ctx: int,
+                    device) -> KVCache:
+    """Preallocated pool pages: self-KV (L, S, H, t_text, Dh) and cross-KV
+    (L, S, H, n_audio_ctx, Dh) in the compute dtype, zero-filled (an unused
+    row stays finite under the step's masks)."""
+    dims = model.dims
+    L, H = dims.n_text_layer, dims.n_text_head
+    Dh = dims.n_text_state // H
+
+    def zeros(t):
+        return torch.zeros((L, n_slots, H, t, Dh), dtype=model.dtype, device=device)
+
+    return KVCache(self_k=zeros(t_text), self_v=zeros(t_text),
+                   cross_k=zeros(n_audio_ctx), cross_v=zeros(n_audio_ctx))
+
+
+@torch.no_grad()
+def prefill_into_pool(model: Whisper, enc_out: torch.Tensor, prompts: torch.Tensor,
+                      pages: KVCache, slots: torch.Tensor) -> torch.Tensor:
+    """Admission of n windows: their cross-KV and the prefill of their
+    right-padded prompts (n, P), written in place into the pool rows `slots`
+    (n,) (cross-KV whole, self-KV at columns [0, P)). Other rows are not
+    touched. Returns the f32 prefill logits (n, P, V)."""
+    n, P = prompts.shape
+    ck, cv = compute_cross_kv(model, enc_out)
+    shape = (ck.shape[0], n, ck.shape[2], P, ck.shape[4])
+    tmp = KVCache(self_k=torch.zeros(shape, dtype=model.dtype, device=ck.device),
+                  self_v=torch.zeros(shape, dtype=model.dtype, device=ck.device),
+                  cross_k=ck, cross_v=cv)
+    logits = decode_prefill(model, prompts, tmp)
+    pages.cross_k.index_copy_(1, slots, ck)
+    pages.cross_v.index_copy_(1, slots, cv)
+    pages.self_k[:, slots, :, :P] = tmp.self_k
+    pages.self_v[:, slots, :, :P] = tmp.self_v
+    return logits
+
+
+def pool_mask(t_text: int, prompt_len: torch.Tensor, prompt_pad: torch.Tensor,
+              col: torch.Tensor) -> torch.Tensor:
+    """(S, t_text) keys each slot attends to in a pool step: its true prompt
+    [0, prompt_len), not the padding gap [prompt_len, prompt_pad), and its
+    generated span [prompt_pad, col] up to this step's own column."""
+    k = torch.arange(t_text, device=col.device)[None, :]
+    return ((k < prompt_len[:, None])
+            | ((k >= prompt_pad[:, None]) & (k <= col[:, None])))
+
+
+@torch.no_grad()
+def decode_step_pool(model: Whisper, token: torch.Tensor, pages: KVCache,
+                     pos: torch.Tensor, col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One step for every slot row: token (S,), slot s at position pos[s]
+    writes its K/V at its own column col[s] and attends under mask (S,
+    t_text) (`pool_mask`) to its own row of the pages. Rows of free slots
+    are computed too, under the same masks, and stay finite. Returns f32
+    logits (S, V)."""
+    dec = model.decoder
+    x = (dec.tok_emb[token] + dec.pos[pos])[:, None, :]
+    x = _decoder_blocks(model, x, pages, col, pages.self_k.shape[3], mask[:, None, None, :])
     return _decoder_tail(model, x)[:, 0, :]

@@ -1,9 +1,9 @@
 """BatchedEngine: cross-request window batching, the counterpart of
 `speaksense_tpu/runtime/batcher.py`.
 
-Callers (REST task workers, the CLI, non-pooled streams) submit mel windows;
-a collector thread drains the queue, groups compatible windows (same mel
-length / task / suppression mode / diarization), pads the group to
+Callers (REST task workers, the CLI, non-pooled stream chunks) submit mel
+windows; a collector thread drains the queue, groups compatible windows
+(same mel length / task / suppression mode / diarization), pads the group to
 `max_batch` by replicating row 0, and runs one `decode_windows` call for all
 of them. BatchedEngine implements the shared AsrEngine interface.
 """
@@ -168,3 +168,20 @@ class BatchedEngine(AsrEngine):
 
     def detect_language(self, audio) -> str:
         return self.engine.detect_language(audio)
+
+    # ---------------------------------------------- slot-pool fast paths
+    # StreamSession probes its engine for these (serving/stream.py). Without
+    # them a session over this wrapper would denoise on the host with the
+    # JAX package's DSP module and decode every chunk sequentially.
+
+    @property
+    def device_denoise(self) -> bool:
+        return self.engine.device_denoise
+
+    def submit_stream_chunk(self, state, audio, params: AsrParams,
+                            pad_to_bucket: bool = False):
+        """None (no pool, an off-bucket chunk, the conditioning bound) sends
+        the caller to the sequential path, transcribe_with_state, which
+        routes window-path chunks through this batcher."""
+        return self.engine.submit_stream_chunk(state, audio, params,
+                                               pad_to_bucket=pad_to_bucket)

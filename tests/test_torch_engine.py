@@ -123,19 +123,29 @@ def test_fallback_ladder_structure_matches_jax(np_params, speech):
     assert counts[0] == counts[1] == (10.0, [1.0, 1.0])
 
 
-def test_empty_audio_and_not_ported_options(engines):
-    _, teng = engines
+def test_empty_audio_and_not_ported_options(engines, speech):
+    jeng, teng = engines
     assert teng.transcribe(np.zeros(0, np.float32), AsrParams()).full_text == ""
-    audio = np.zeros(16000, np.float32)
-    for params in (AsrParams(stream_mode=True), AsrParams(word_timestamps=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.transcribe(audio, params)
+    # a sub-bucket stream chunk without a pool takes the window path, with
+    # the JAX engine's result
+    params = AsrParams(language="en", stream_mode=True)
+    chunk = speech[:16000 * 3]
+    got = teng.transcribe_with_state(teng.create_state(), chunk, params)
+    want = jeng.transcribe_with_state(jeng.create_state(), chunk, params)
+    _compare(want, got)
+    assert got.n_tokens > 0 and len(got.segments) <= 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.transcribe(np.zeros(16000, np.float32), AsrParams(word_timestamps=True))
     with pytest.raises(NotImplementedError, match="beam"):
         teng.decode_windows(np.zeros((1, 3000, 80), np.float32), "en", beam_size=4)
     with pytest.raises(NotImplementedError, match="int8"):
         TEngine(teng.model, teng.tokenizer, config=EngineConfig(cross_kv_int8=True))
     with pytest.raises(NotImplementedError, match="ggml"):
         TEngine.from_ggml("model.bin")
+    for kwargs, match in ((dict(int8_kv=True), "int8"), (dict(beam_size=5), "beam")):
+        with pytest.raises(NotImplementedError, match=match):
+            teng.enable_slot_serving(n_slots=2, **kwargs)
+        assert teng._slot_server is None
 
 
 def test_rest_task_processor_runs_on_the_port(engines, speech, tmp_path):
@@ -190,13 +200,45 @@ def test_build_engine_composes_a_batched_random_engine():
         eng.stop()
 
 
+_POOLED_SESSION = """
+import base64, sys
+import numpy as np
+import speaksense_tpu_torch, speaksense_tpu_torch.main, speaksense_tpu_torch.asr.engine
+import speaksense_tpu_torch.runtime.batcher, speaksense_tpu_torch.runtime.slots
+import speaksense_tpu_torch.audio.dsp
+from speaksense_tpu.config import Config, EngineConfig
+from speaksense_tpu.serving.stream import StreamSession
+from speaksense_tpu_torch.main import build_engine
+
+config = Config()
+config.engine = EngineConfig(compute_dtype="float32", logprob_thold=-1e9,
+                             entropy_thold=-1.0, compression_ratio_thold=1e9)
+eng = build_engine(config, model="tiny", device="cpu", seed=1, slot_serving=True,
+                   slots=2, slot_tokens=4)
+try:
+    session = StreamSession(eng, language="en", denoise=True)
+    pcm = (np.random.default_rng(0).standard_normal(16000 * 6) * 3000).astype(np.int16)
+    pendings = []
+    for i in range(0, pcm.size, 16000):
+        pendings += session.ingest(base64.standard_b64encode(pcm[i:i + 16000].tobytes()))
+    for p in pendings:
+        session.settle(p)
+    events = session.finish()
+    assert events[-1].end == 1, events
+    assert eng.engine._slot_server.pool.admit_rows == 2
+finally:
+    eng.engine.disable_slot_serving()
+    eng.stop()
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import speaksense_tpu_torch, speaksense_tpu_torch.main, "
-            "speaksense_tpu_torch.asr.engine, speaksense_tpu_torch.runtime.batcher\n"
-            "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "assert not leaked, leaked\n"
-            "print('ok')\n")
+    """The port's modules and a pooled StreamSession with device denoise
+    run end to end (ingest, settle, finish) without importing jax."""
+    code = _POOLED_SESSION
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
