@@ -2,15 +2,17 @@
 
 The JAX package (`speaksense_tpu`) stays the reference; this package mirrors
 its layout module for module (`models/whisper.py`, `models/decode.py`,
-`audio/mel.py`, `asr/engine.py`, `runtime/batcher.py`, `ops/flash.py`) and
-runs the 30 s window-transcription path on an NVIDIA Hopper GPU. The encoder's
-flash attention is a hand-written CUDA kernel (`ops/csrc/flash_attn_fwd.cu`);
-every other op is plain PyTorch.
+`audio/mel.py`, `asr/engine.py`, `runtime/batcher.py`, `runtime/slots.py`,
+`ckpt/`, `ops/flash.py`, `cli.py`) and runs the 30 s window path and the
+streaming slot pool on an NVIDIA Hopper GPU, on weights loaded from ggml or
+HF checkpoints. The encoder's flash attention is a hand-written CUDA kernel
+(`ops/csrc/flash_attn_fwd.cu`); every other op is plain PyTorch.
 
-The package never imports jax. The jax-free shared code of the JAX package
-(`speaksense_tpu.asr`, `.asr.postprocess`, `.config`, `.utils.metrics`) is
-imported directly; the tokenizer file is loaded on its own by `_shared`
-because its package `__init__` imports jax.
+The package stands alone: it imports torch, numpy and the standard library,
+never jax and nothing of `speaksense_tpu`. What it needs of the JAX
+package's jax-free modules (the `AsrEngine` interface, postprocess, config,
+metrics, tokenizer, the numpy DSP, `StreamSession`, the checkpoint codecs)
+it keeps as its own copies, each naming the file it mirrors.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """WhisperEngine in PyTorch: the counterpart of `speaksense_tpu/asr/engine.py`
-behind the shared `AsrEngine` interface.
+behind the port's `AsrEngine` interface (`speaksense_tpu_torch/asr`).
 
-Covered: random-weight and JAX-parameter construction, log-mel, batched
+Covered: checkpoint loading (`from_pretrained`: ggml files of every quant
+type whisper.cpp ships, through the convert-once weight cache, and HF
+directories), random-weight and JAX-parameter construction, log-mel, batched
 window decoding with whisper's temperature-fallback ladder (greedy attempt,
 then best_of sampled candidate rows per pending window), language detection,
 the openai-style long-form seek loop with no-speech skipping and
@@ -15,14 +17,16 @@ takes the window path.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item: beam search and the beam pool, word timestamps, VAD segmentation,
-ggml/HF checkpoint loading, multi-GPU sharding and the int8 weight/KV
-options.
+multi-GPU sharding and the int8 weight/KV options.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
+import json
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -30,15 +34,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from speaksense_tpu.asr import AsrEngine, AsrParams, TranscribeResult, TranscribeSegment
-from speaksense_tpu.asr import postprocess as PP
-from speaksense_tpu.config import EngineConfig
-from speaksense_tpu.utils.metrics import REGISTRY as METRICS
-from speaksense_tpu_torch._shared import Tokenizer
+from speaksense_tpu_torch.asr import AsrEngine, AsrParams, TranscribeResult, TranscribeSegment
+from speaksense_tpu_torch.asr import postprocess as PP
 from speaksense_tpu_torch.audio import dsp as DSP
 from speaksense_tpu_torch.audio import mel as MEL
 from speaksense_tpu_torch.models import decode as D
+from speaksense_tpu_torch.config import EngineConfig
 from speaksense_tpu_torch.models import whisper as W
+from speaksense_tpu_torch.models.tokenizer import Tokenizer
+from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
 log = logging.getLogger(__name__)
 
@@ -50,7 +54,6 @@ _LATER = {
     "int8": "int8 paths (int8 weights, int8 cross-KV, int8 self-KV)",
     "beam": "beam search and the beam pool",
     "stream": "transcribe_audio_vad and word_timestamps",
-    "ckpt": "ggml and HF checkpoint loading",
     "multi": "multi-GPU",
 }
 
@@ -59,6 +62,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to speaksense_tpu_torch yet "
         f"(ROADMAP.md Queue 1, remaining: {_LATER[item]})")
+
+
+def _refuse_int8(config: EngineConfig) -> None:
+    if config.weights_int8 or config.cross_kv_int8 or config.self_kv_int8:
+        raise _not_ported("int8 weights / KV", "int8")
 
 
 @dataclass
@@ -168,8 +176,7 @@ class WhisperEngine(AsrEngine):
                  mel_filters: np.ndarray | None = None,
                  config: EngineConfig | None = None, name: str = "whisper", seed: int = 0):
         self.config = config or EngineConfig()
-        if self.config.weights_int8 or self.config.cross_kv_int8 or self.config.self_kv_int8:
-            raise _not_ported("int8 weights / KV", "int8")
+        _refuse_int8(self.config)
         self.model = model
         self.dims = model.dims
         self.device = model.device
@@ -207,19 +214,90 @@ class WhisperEngine(AsrEngine):
 
     @classmethod
     def from_jax_params(cls, np_params: dict, dims: W.WhisperDims, tokenizer: Tokenizer,
-                        config: EngineConfig | None = None, device="cpu") -> "WhisperEngine":
-        """Engine on the JAX package's parameter pytree (numpy arrays)."""
+                        config: EngineConfig | None = None, device="cuda",
+                        mel_filters: np.ndarray | None = None,
+                        name: str = "jax-params") -> "WhisperEngine":
+        """Engine on a parameter pytree of numpy arrays in the JAX package's
+        layout (what the checkpoint loaders give). q/k/v are fused on the
+        host as the weights are copied to `device`: the port's blocks always
+        hold one fused projection, so `config.fuse_qkv` changes nothing."""
         config = config or EngineConfig()
         m = W.params_from_jax(np_params, dims, device=device, dtype=cls._dtype(config))
-        return cls(m, tokenizer, config=config, name="jax-params")
+        return cls(m, tokenizer, mel_filters=mel_filters, config=config, name=name)
 
     @classmethod
-    def from_ggml(cls, path: str, config: EngineConfig | None = None) -> "WhisperEngine":
-        raise _not_ported("ggml loading", "ckpt")
+    def from_ggml(cls, path: str, config: EngineConfig | None = None, use_cache: bool = True,
+                  device="cuda") -> "WhisperEngine":
+        """Engine on a whisper.cpp ggml checkpoint, with its mel filterbank
+        and vocab. With use_cache the converted weights are read from, or
+        written to, `config.weight_cache_dir` (`ckpt/cache.py`)."""
+        from speaksense_tpu_torch.ckpt import cache as CK
+        from speaksense_tpu_torch.ckpt.ggml import load_ggml, params_from_ggml
+
+        config = config or EngineConfig()
+        _refuse_int8(config)     # before reading gigabytes
+        path = str(path)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no ggml checkpoint at {path}")
+        t0 = time.perf_counter()
+        cached = CK.load_cached(path, config.weight_cache_dir) if use_cache else None
+        if cached is not None:
+            params, meta = cached
+            dims = W.WhisperDims(**meta["dims"])
+            vocab, filters = meta["vocab"], meta["filters"]
+            log.info("loaded cached weights for %s in %.1fs", path, time.perf_counter() - t0)
+        else:
+            model = load_ggml(path)
+            params = params_from_ggml(model)
+            dims, vocab, ftype = model.dims, model.vocab, model.ftype
+            filters = model.filters if model.filters.size else None
+            del model       # the f32 tensors: the pytree holds its own copies
+            log.info("loaded ggml model %s in %.1fs (dims=%s)", path,
+                     time.perf_counter() - t0, dims)
+            if use_cache:
+                try:
+                    CK.save_cached(path, config.weight_cache_dir, params,
+                                   dataclasses.asdict(dims), vocab, filters,
+                                   ftype=ftype)
+                except OSError as e:
+                    log.warning("weight cache write failed: %s", e)
+        return cls.from_jax_params(params, dims, Tokenizer.from_vocab(vocab), config=config,
+                                   device=device, mel_filters=filters, name=path)
 
     @classmethod
-    def from_hf_dir(cls, path: str, config: EngineConfig | None = None) -> "WhisperEngine":
-        raise _not_ported("HF checkpoint loading", "ckpt")
+    def from_hf_dir(cls, path: str, config: EngineConfig | None = None,
+                    device="cuda") -> "WhisperEngine":
+        """Engine on a HuggingFace checkpoint directory (config.json and
+        model.safetensors, single or sharded). The vocab comes from
+        speaksense_vocab.json (hex pieces) when present; otherwise the
+        synthetic tokenizer stands in."""
+        from speaksense_tpu_torch.ckpt.hf_dir import load_hf_dir
+
+        config = config or EngineConfig()
+        _refuse_int8(config)
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"no HF checkpoint directory at {path}")
+        params, dims = load_hf_dir(path)
+        vocab_file = os.path.join(path, "speaksense_vocab.json")
+        if os.path.isfile(vocab_file):
+            with open(vocab_file) as f:
+                tok = Tokenizer.from_vocab([bytes.fromhex(h) for h in json.load(f)])
+        else:
+            log.warning("%s has no speaksense_vocab.json; using synthetic vocab "
+                        "(special tokens fine, text decode needs the real vocab)", path)
+            tok = Tokenizer.synthetic(dims.n_vocab)
+        return cls.from_jax_params(params, dims, tok, config=config, device=device,
+                                   name=str(path))
+
+    @classmethod
+    def from_pretrained(cls, path: str, config: EngineConfig | None = None,
+                        device="cuda") -> "WhisperEngine":
+        """Dispatch on checkpoint type: an HF directory, or else a ggml file
+        (through the weight cache). A missing path raises
+        FileNotFoundError; there is no fallback to random weights."""
+        if os.path.isdir(path):
+            return cls.from_hf_dir(path, config=config, device=device)
+        return cls.from_ggml(path, config=config, device=device)
 
     def shard(self, mesh) -> None:
         raise _not_ported("multi-GPU sharding", "multi")

@@ -85,8 +85,8 @@ def _dft_basis(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
 
 def pcm_to_f32(audio: torch.Tensor) -> torch.Tensor:
     """s16 PCM -> f32 on the tensor's device with the reference's 1/32767
-    scaling (the constant of `speaksense_tpu.serving.stream.pcm_i16_to_f32`
-    and of the JAX pool's admission, `slots.py:305-309`); other dtypes are
+    scaling (the constant of `serving/stream.py::pcm_i16_to_f32` and of the
+    JAX pool's admission, `slots.py:305-309`); other dtypes are
     cast to f32 unscaled."""
     if audio.dtype == torch.int16:
         return audio.float() / 32767.0

@@ -16,8 +16,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from speaksense_tpu_torch._shared import TS_RESOLUTION, Tokenizer
 from speaksense_tpu_torch.models import whisper as W
+from speaksense_tpu_torch.models.tokenizer import TS_RESOLUTION, Tokenizer
 
 NEG_INF = -1e30
 

@@ -180,7 +180,7 @@ class Whisper(nn.Module):
     """Parameter container; uninitialised until `init_random` or
     `params_from_jax` fills it."""
 
-    def __init__(self, dims: WhisperDims, device="cpu", dtype=torch.bfloat16):
+    def __init__(self, dims: WhisperDims, device="cuda", dtype=torch.bfloat16):
         super().__init__()
         self.dims = dims
         self.dtype = dtype
@@ -193,7 +193,7 @@ class Whisper(nn.Module):
 
 
 @torch.no_grad()
-def init_random(dims: WhisperDims, generator: torch.Generator, device="cpu",
+def init_random(dims: WhisperDims, generator: torch.Generator, device="cuda",
                 dtype=torch.bfloat16) -> Whisper:
     """Random weights with the scales of the JAX `init_params_np`, drawn on
     `device` from `generator` (which must live on that device)."""
@@ -221,12 +221,14 @@ def init_random(dims: WhisperDims, generator: torch.Generator, device="cpu",
 
 
 @torch.no_grad()
-def params_from_jax(np_params: dict, dims: WhisperDims, device="cpu",
+def params_from_jax(np_params: dict, dims: WhisperDims, device="cuda",
                     dtype=torch.bfloat16) -> Whisper:
-    """Build the port's model from the JAX parameter pytree of numpy arrays
-    (as `W.init_params_np` returns it, with fused "qkv" or separate q/k/v
-    blocks). JAX linear weights are (in, out) and the conv stem (k, in, out);
-    both are transposed to PyTorch's layout."""
+    """Build the port's model on `device` from a parameter pytree of numpy
+    arrays in the JAX package's layout (as `W.init_params_np` and the
+    checkpoint loaders of `speaksense_tpu_torch/ckpt` give it, with fused
+    "qkv" or separate q/k/v blocks; separate ones are fused on the host).
+    JAX linear weights are (in, out) and the conv stem (k, in, out); both
+    are transposed to PyTorch's layout."""
     model = Whisper(dims, device, dtype)
 
     def put(p: torch.Tensor, x) -> None:

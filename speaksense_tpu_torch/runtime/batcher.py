@@ -5,7 +5,7 @@ Callers (REST task workers, the CLI, non-pooled stream chunks) submit mel
 windows; a collector thread drains the queue, groups compatible windows
 (same mel length / task / suppression mode / diarization), pads the group to
 `max_batch` by replicating row 0, and runs one `decode_windows` call for all
-of them. BatchedEngine implements the shared AsrEngine interface.
+of them. BatchedEngine implements the port's AsrEngine interface.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from speaksense_tpu.asr import AsrEngine, AsrParams, TranscribeResult
-from speaksense_tpu.utils.metrics import REGISTRY as METRICS
+from speaksense_tpu_torch.asr import AsrEngine, AsrParams, TranscribeResult
 from speaksense_tpu_torch.asr.engine import WhisperEngine
+from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
 log = logging.getLogger(__name__)
 
@@ -171,8 +171,8 @@ class BatchedEngine(AsrEngine):
 
     # ---------------------------------------------- slot-pool fast paths
     # StreamSession probes its engine for these (serving/stream.py). Without
-    # them a session over this wrapper would denoise on the host with the
-    # JAX package's DSP module and decode every chunk sequentially.
+    # them a session over this wrapper would denoise on the host and decode
+    # every chunk sequentially.
 
     @property
     def device_denoise(self) -> bool:

@@ -12,9 +12,21 @@ import torch
 from speaksense_tpu.models import decode as JD
 from speaksense_tpu.models import whisper as JW
 from speaksense_tpu.models.tokenizer import Tokenizer as JTokenizer
-from speaksense_tpu_torch._shared import Tokenizer
 from speaksense_tpu_torch.models import decode as TD
 from speaksense_tpu_torch.models import whisper as TW
+from speaksense_tpu_torch.models.tokenizer import Tokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU ops: the parallel test run
+    puts several workers on the cores, and torch's thread pool then spins
+    against them, slowing these small ops tenfold or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 DIMS = JW.WhisperDims(n_mels=80, n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
                       n_audio_head=2, n_audio_layer=2, n_text_ctx=448, n_text_state=128,
@@ -36,7 +48,7 @@ JTOK = JTokenizer.synthetic(DIMS.n_vocab)
 def models():
     np_params = JW.fuse_qkv_weights(JW.init_params_np(DIMS, seed=7))
     jparams = jax.tree.map(jnp.asarray, np_params)
-    return jparams, TW.params_from_jax(np_params, TDIMS, dtype=torch.float32)
+    return jparams, TW.params_from_jax(np_params, TDIMS, device="cpu", dtype=torch.float32)
 
 
 def _prompts(contexts):

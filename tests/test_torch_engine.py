@@ -1,7 +1,8 @@
 """The port's window-transcription slice as a whole, against the JAX package
 on shared tiny weights (both in float32 on the CPU): the window batcher's
 `transcribe`, language detection, the temperature-fallback ladder, the REST
-task processor driving the port, and the port's import boundary (no jax)."""
+task processor driving the port, and the port's import boundary (no jax and
+nothing of the JAX package)."""
 
 import os
 import subprocess
@@ -18,12 +19,28 @@ from speaksense_tpu.config import Config, EngineConfig
 from speaksense_tpu.models import whisper as JW
 from speaksense_tpu.models.tokenizer import Tokenizer as JTokenizer
 from speaksense_tpu.runtime.batcher import BatchedEngine as JBatched
-from speaksense_tpu.utils.metrics import REGISTRY as METRICS
+from speaksense_tpu.utils.metrics import REGISTRY as JMETRICS
 from speaksense_tpu_torch import main as TMAIN
-from speaksense_tpu_torch._shared import Tokenizer
+from speaksense_tpu_torch.asr import TranscribeResult as TResult
 from speaksense_tpu_torch.asr.engine import WhisperEngine as TEngine
+from speaksense_tpu_torch.audio import mel as TMEL
+from speaksense_tpu_torch.ckpt import ggml as TG
 from speaksense_tpu_torch.models import whisper as TW
+from speaksense_tpu_torch.models.tokenizer import Tokenizer
 from speaksense_tpu_torch.runtime.batcher import BatchedEngine as TBatched
+from speaksense_tpu_torch.utils.metrics import REGISTRY as TMETRICS
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU ops: the parallel test run
+    puts several workers on the cores, and torch's thread pool then spins
+    against them, slowing these small ops tenfold or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -114,10 +131,11 @@ def test_fallback_ladder_structure_matches_jax(np_params, speech):
     mels = np.concatenate([np.asarray(jeng.compute_mel(speech[:16000 * 5])),
                            np.asarray(jeng.compute_mel(speech[16000 * 5:16000 * 12]))])
     counts = []
-    for eng in (jeng, teng):
-        before = METRICS.snapshot()["counters"].get("asr_fallback_retries_total", 0.0)
+    # each package counts in its own metrics registry
+    for eng, metrics in ((jeng, JMETRICS), (teng, TMETRICS)):
+        before = metrics.snapshot()["counters"].get("asr_fallback_retries_total", 0.0)
         res = eng.decode_windows(mels, "en")
-        after = METRICS.snapshot()["counters"]["asr_fallback_retries_total"]
+        after = metrics.snapshot()["counters"]["asr_fallback_retries_total"]
         counts.append((after - before, [r["temperature"] for r in res]))
     # 2 rows x 5 retries each, ending at the top of the ladder
     assert counts[0] == counts[1] == (10.0, [1.0, 1.0])
@@ -140,7 +158,8 @@ def test_empty_audio_and_not_ported_options(engines, speech):
         teng.decode_windows(np.zeros((1, 3000, 80), np.float32), "en", beam_size=4)
     with pytest.raises(NotImplementedError, match="int8"):
         TEngine(teng.model, teng.tokenizer, config=EngineConfig(cross_kv_int8=True))
-    with pytest.raises(NotImplementedError, match="ggml"):
+    # a missing checkpoint raises; there is no fallback to random weights
+    with pytest.raises(FileNotFoundError, match="model.bin"):
         TEngine.from_ggml("model.bin")
     for kwargs, match in ((dict(int8_kv=True), "int8"), (dict(beam_size=5), "beam")):
         with pytest.raises(NotImplementedError, match=match):
@@ -195,27 +214,47 @@ def test_build_engine_composes_a_batched_random_engine():
         assert eng.engine.model.dtype == torch.bfloat16
         assert eng.engine.dims == TW.MODEL_DIMS["tiny"]
         res = eng.transcribe(np.zeros(16000 * 2, np.float32), AsrParams(language="en"))
-        assert isinstance(res, TranscribeResult) and eng.windows_run == 1
+        assert isinstance(res, TResult) and eng.windows_run == 1
     finally:
         eng.stop()
 
 
-_POOLED_SESSION = """
-import base64, sys
-import numpy as np
-import speaksense_tpu_torch, speaksense_tpu_torch.main, speaksense_tpu_torch.asr.engine
-import speaksense_tpu_torch.runtime.batcher, speaksense_tpu_torch.runtime.slots
-import speaksense_tpu_torch.audio.dsp
-from speaksense_tpu.config import Config, EngineConfig
-from speaksense_tpu.serving.stream import StreamSession
-from speaksense_tpu_torch.main import build_engine
+def _write_tiny_ggml(path, ftype=TG.F16, seed=2):
+    """A tiny whisper ggml checkpoint of DIMS from seeded weights, with the
+    real 80-bin mel filterbank and a vocab of 50,257 text pieces (the
+    loader pads the rest)."""
+    tensors = TG.ggml_tensors_from_params(JW.init_params_np(DIMS, seed=seed), TDIMS)
+    vocab = [b" w%d" % i for i in range(50257)]
+    TG.write_ggml(TG.GgmlModel(dims=TDIMS, ftype=ftype, filters=TMEL.mel_filter_bank(80),
+                               vocab=vocab, tensors=tensors), str(path), ftype=ftype)
 
-config = Config()
+
+_POOLED_SESSION = """
+import base64, importlib, pkgutil, sys
+from pathlib import Path
+import numpy as np
+import speaksense_tpu_torch
+
+# every module of the port, the CLI, the loaders and the session included
+names = [m.name for m in pkgutil.walk_packages(speaksense_tpu_torch.__path__,
+                                               "speaksense_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
+        "speaksense_tpu_torch.ckpt.cache", "speaksense_tpu_torch.ckpt.hf_dir",
+        "speaksense_tpu_torch.serving.stream"} <= set(names), names
+
+from speaksense_tpu_torch.config import Config, EngineConfig
+from speaksense_tpu_torch.main import build_engine
+from speaksense_tpu_torch.serving.stream import StreamSession
+
+config = Config(model_path=sys.argv[1])
 config.engine = EngineConfig(compute_dtype="float32", logprob_thold=-1e9,
-                             entropy_thold=-1.0, compression_ratio_thold=1e9)
-eng = build_engine(config, model="tiny", device="cpu", seed=1, slot_serving=True,
-                   slots=2, slot_tokens=4)
+                             entropy_thold=-1.0, compression_ratio_thold=1e9,
+                             weight_cache_dir=sys.argv[2])
+eng = build_engine(config, device="cpu", slot_serving=True, slots=2, slot_tokens=4)
 try:
+    assert eng.engine.name == sys.argv[1] and eng.engine.dims.n_audio_state == 128
     session = StreamSession(eng, language="en", denoise=True)
     pcm = (np.random.default_rng(0).standard_normal(16000 * 6) * 3000).astype(np.int16)
     pendings = []
@@ -229,18 +268,30 @@ try:
 finally:
     eng.engine.disable_slot_serving()
     eng.stop()
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "speaksense_tpu"))
 assert not leaked, leaked
+jax_package = (Path(speaksense_tpu_torch.__file__).resolve().parent.parent
+               / "speaksense_tpu")
+read = sorted(str(m.__file__) for m in list(sys.modules.values())
+              if getattr(m, "__file__", None)
+              and Path(m.__file__).resolve().is_relative_to(jax_package))
+assert not read, read
 print("ok")
 """
 
 
-def test_port_imports_no_jax():
-    """The port's modules and a pooled StreamSession with device denoise
-    run end to end (ingest, settle, finish) without importing jax."""
-    code = _POOLED_SESSION
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the port imports, and a ggml checkpoint loads through
+    `build_engine(config)` and serves a pooled StreamSession with device
+    denoise end to end (ingest, settle, finish), without importing jax or
+    anything of the JAX package, by name or by file."""
+    ckpt = tmp_path / "tiny.bin"
+    _write_tiny_ggml(ckpt)
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", _POOLED_SESSION, str(ckpt),
+                          str(tmp_path / "cache")], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+    assert (tmp_path / "cache" / "tiny.cache.npz").is_file()

@@ -15,9 +15,9 @@ from speaksense_tpu.config import EngineConfig
 from speaksense_tpu.models import whisper as JW
 from speaksense_tpu.models.tokenizer import Tokenizer as JTokenizer
 from speaksense_tpu.runtime.slots import StreamingDecodeServer as JServer
-from speaksense_tpu_torch._shared import Tokenizer
 from speaksense_tpu_torch.asr.engine import WhisperEngine as TEngine
 from speaksense_tpu_torch.models import whisper as TW
+from speaksense_tpu_torch.models.tokenizer import Tokenizer
 from speaksense_tpu_torch.runtime.slots import SlotPool, StreamingDecodeServer, _StreamJob
 
 DIMS = JW.WhisperDims(n_mels=80, n_vocab=51865, n_audio_ctx=1500, n_audio_state=64,
@@ -43,7 +43,7 @@ def np_params():
 @pytest.fixture(scope="module")
 def teng(np_params):
     return TEngine.from_jax_params(np_params, TDIMS, Tokenizer.synthetic(DIMS.n_vocab),
-                                   config=EngineConfig(**NEVER))
+                                   config=EngineConfig(**NEVER), device="cpu")
 
 
 @pytest.fixture(scope="module")

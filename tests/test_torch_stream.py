@@ -1,5 +1,5 @@
-"""The port's streaming slice as a whole: the shared `StreamSession` over the
-port's pooled `BatchedEngine` against the same session over the JAX one,
+"""The port's streaming slice as a whole: the port's `StreamSession` over the
+port's pooled `BatchedEngine` against the JAX `StreamSession` over the JAX one,
 the pooled fallback ladder's structure, and the engine's stream surface
 (pipelined submission, oversized chunks, the padded tail flush, silence
 suppression, conditioning). Tiny shared weights, float32, on the CPU."""
@@ -17,12 +17,14 @@ from speaksense_tpu.config import EngineConfig
 from speaksense_tpu.models import whisper as JW
 from speaksense_tpu.models.tokenizer import Tokenizer as JTokenizer
 from speaksense_tpu.runtime.batcher import BatchedEngine as JBatched
-from speaksense_tpu.serving.stream import StreamSession
-from speaksense_tpu.utils.metrics import REGISTRY as METRICS
-from speaksense_tpu_torch._shared import Tokenizer
+from speaksense_tpu.serving.stream import StreamSession as JSession
+from speaksense_tpu.utils.metrics import REGISTRY as JMETRICS
 from speaksense_tpu_torch.asr.engine import WhisperEngine as TEngine
 from speaksense_tpu_torch.models import whisper as TW
+from speaksense_tpu_torch.models.tokenizer import Tokenizer
 from speaksense_tpu_torch.runtime.batcher import BatchedEngine as TBatched
+from speaksense_tpu_torch.serving.stream import StreamSession as TSession
+from speaksense_tpu_torch.utils.metrics import REGISTRY as TMETRICS
 
 DIMS = JW.WhisperDims(n_mels=80, n_vocab=51865, n_audio_ctx=1500, n_audio_state=64,
                       n_audio_head=4, n_audio_layer=2, n_text_ctx=448, n_text_state=64,
@@ -45,7 +47,7 @@ def engines():
     cfg = EngineConfig(compute_dtype="float32", best_of=2, **NEVER)
     jeng = JEngine(np_params, DIMS, JTokenizer.synthetic(DIMS.n_vocab), config=cfg)
     teng = TEngine.from_jax_params(np_params, TDIMS, Tokenizer.synthetic(DIMS.n_vocab),
-                                   config=dataclasses.replace(cfg))
+                                   config=dataclasses.replace(cfg), device="cpu")
     for eng in (jeng, teng):
         eng.enable_slot_serving(**POOL)
     yield jeng, teng
@@ -65,8 +67,10 @@ def _thresholds(engs, **kw):
             eng.config = cfg
 
 
-def _counter(name: str) -> float:
-    return METRICS.snapshot()["counters"].get(name, 0.0)
+def _counter(name: str, metrics=TMETRICS) -> float:
+    """A counter of the port's registry, or of `metrics` (each package
+    counts in its own)."""
+    return metrics.snapshot()["counters"].get(name, 0.0)
 
 
 def _speech(seconds: float, seed: int = 3) -> np.ndarray:
@@ -78,9 +82,9 @@ def _speech(seconds: float, seed: int = 3) -> np.ndarray:
     return (0.2 * voiced * env + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
 
 
-def _session_events(engine, pcm: np.ndarray) -> list:
+def _session_events(engine, pcm: np.ndarray, session_cls=TSession) -> list:
     """ingest 1 s packets, settle in order, finish: the gRPC handler's use."""
-    session = StreamSession(engine, language="en", denoise=True)
+    session = session_cls(engine, language="en", denoise=True)
     pendings = []
     for i in range(0, pcm.size, 16000):
         pendings += session.ingest(base64.standard_b64encode(pcm[i:i + 16000].tobytes()))
@@ -95,12 +99,12 @@ def test_stream_session_matches_jax(engines):
     jeng, teng = engines
     pcm = (_speech(10.0) * 32767).astype(np.int16)
     out = []
-    for eng, batched in ((jeng, JBatched), (teng, TBatched)):
+    for eng, batched, session_cls in ((jeng, JBatched, JSession), (teng, TBatched, TSession)):
         wrapper = batched(eng, max_batch=2, max_wait_ms=1.0)
         rows = eng._slot_server.pool.admit_rows
         try:
             assert wrapper.device_denoise
-            out.append(_session_events(wrapper, pcm))
+            out.append(_session_events(wrapper, pcm, session_cls))
         finally:
             wrapper.stop()
         assert eng._slot_server.pool.admit_rows - rows == 3
@@ -118,7 +122,7 @@ def test_pooled_ladder_structure_matches_jax(engines):
     jeng, teng = engines
     audio = _speech(3.0)
     seen = []
-    for eng in (jeng, teng):
+    for eng, metrics in ((jeng, JMETRICS), (teng, TMETRICS)):
         server = eng._slot_server
         temps = []
         real = server.submit_audio
@@ -139,16 +143,16 @@ def test_pooled_ladder_structure_matches_jax(engines):
         eng._pool_quality_gate = gate
         state = eng.create_state()
         state.context_tokens = [101, 102]
-        b_pool = _counter("asr_pool_fallback_retries_total")
-        b_all = _counter("asr_fallback_retries_total")
+        b_pool = _counter("asr_pool_fallback_retries_total", metrics)
+        b_all = _counter("asr_fallback_retries_total", metrics)
         try:
             with _thresholds([eng], **ALWAYS):
                 res = eng.transcribe_with_state(state, audio, STREAM)
         finally:
             del server.submit_audio
             del eng._pool_quality_gate
-        seen.append((temps, _counter("asr_pool_fallback_retries_total") - b_pool,
-                     _counter("asr_fallback_retries_total") - b_all,
+        seen.append((temps, _counter("asr_pool_fallback_retries_total", metrics) - b_pool,
+                     _counter("asr_fallback_retries_total", metrics) - b_all,
                      state.context_tokens, res.language, finals))
     assert seen[0] == seen[1]
     temps, pool_retries, all_retries, ctx, lang, finals = seen[1]
@@ -183,7 +187,9 @@ def test_oversized_chunk_rides_the_pool(engines):
     seq = teng.transcribe_with_state(teng.create_state(), audio, STREAM)
     pending = teng.submit_stream_chunk(teng.create_state(), audio, STREAM)
     assert pending is not None and len(pending.futures) == 3
-    assert pending.settle() == seq == want
+    assert pending.settle() == seq
+    # the two packages' results are instances of two classes: compare fields
+    assert dataclasses.asdict(seq) == dataclasses.asdict(want)
     assert teng._slot_server.pool.admit_rows - rows == 6
     assert _counter("asr_slot_bucket_fallbacks_total") == before
     for s in seq.segments:

@@ -40,7 +40,7 @@ def _tree(x):
 
 @pytest.fixture(scope="module")
 def tmodel(np_params):
-    return TW.params_from_jax(np_params, TDIMS, dtype=torch.float32)
+    return TW.params_from_jax(np_params, TDIMS, device="cpu", dtype=torch.float32)
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,8 @@ def test_encode_matches_jax(jparams, tmodel, mel, n_ctx_out):
 
 
 def test_fused_and_unfused_qkv_give_the_same_model(np_params, tmodel, mel):
-    fused = TW.params_from_jax(JW.fuse_qkv_weights(np_params), TDIMS, dtype=torch.float32)
+    fused = TW.params_from_jax(JW.fuse_qkv_weights(np_params), TDIMS, device="cpu",
+                               dtype=torch.float32)
     for a, b in zip(fused.state_dict().values(), tmodel.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     m = torch.from_numpy(mel[:1, :500])
@@ -131,8 +132,8 @@ def test_compute_cross_kv_layout(jparams, tmodel, mel):
 def test_init_random_scales_and_determinism():
     g1 = torch.Generator().manual_seed(5)
     g2 = torch.Generator().manual_seed(5)
-    m1 = TW.init_random(TDIMS, g1, dtype=torch.float32)
-    m2 = TW.init_random(TDIMS, g2, dtype=torch.float32)
+    m1 = TW.init_random(TDIMS, g1, device="cpu", dtype=torch.float32)
+    m2 = TW.init_random(TDIMS, g2, device="cpu", dtype=torch.float32)
     for a, b in zip(m1.state_dict().values(), m2.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     blk = m1.encoder.blocks[0]
@@ -159,7 +160,7 @@ def test_bf16_encoder_keeps_f32_activations_like_jax(np_params):
     jp = {k: _tree_bf16(v) for k, v in np4.items()}
     bf16_valued = {k: _tree_np(v) for k, v in jp.items()}
     tmodel = TW.params_from_jax(bf16_valued, TW.WhisperDims(**dims.__dict__),
-                                dtype=torch.bfloat16)
+                                device="cpu", dtype=torch.bfloat16)
     mel = np.random.default_rng(11).standard_normal((2, 1000, 80)).astype(np.float32) * 0.5
     want = np.asarray(JW.encode(jp, dims, jnp.asarray(mel), flash=False)).astype(np.float64)
     got = TW.encode(tmodel, torch.from_numpy(mel))
