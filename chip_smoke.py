@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase kernel    # or main, stream, grad, ckpt
+    python3 chip_smoke.py --phase kernel    # or main, stream, grad, beam, ckpt
 
 It first compiles the hand-written CUDA kernels from the sources in the
 tree, then runs its phases; main and stream share one set of
@@ -22,10 +22,11 @@ large-v3-width random weights:
           beside the back-to-back host figure; then run the tile sweep tool
           (`speaksense_tpu_torch.tools.microbench_encattn`) in process;
   main    answer 2 concurrent transcribe requests through the window
-          batcher of `speaksense_tpu_torch.main.build_engine`, check the
-          results and the kernel launch counts, hold the full-depth encoder
-          with the kernel against the plain attention, and time the encoder
-          with f32 activations against one with bf16 activations;
+          batcher of `speaksense_tpu_torch.main.build_engine` (48 new tokens
+          a window), check the results and the kernel launch counts, hold
+          the full-depth encoder with the kernel against the plain
+          attention, and time the encoder with f32 activations against one
+          with bf16 activations;
   stream  drive the port's `StreamSession` from 64 threads over the 64-slot
           pool (1 s packets, 5 s chunks, device denoise), then 8 sessions
           with every fallback gate armed, and check admissions, retries,
@@ -36,6 +37,14 @@ large-v3-width random weights:
           launch counts (32 forward, 32 dQ-with-delta and 32 dK/dV, no
           standalone delta) and the gradients against the same encoder with
           the plain attention, then serve one request on the same engine;
+  beam    on an engine with beam_size 5 (BASELINE config 4: 64 streams,
+          beam = 5): 2 concurrent 30 s requests through the window beam
+          search, 64 session threads through the 64-slot K = 5 beam pool
+          (int8 self-KV pages), one session with the gates armed (its
+          retries take the window path), the pool's step, admission and
+          device busy time, a window beam call at B = 8, int8 against bf16
+          pages on one window; then one 30 s window with int8 weights,
+          cross-KV and self-KV;
   ckpt    write a full-width large-v3 f16 ggml checkpoint from seeded
           weights into a temporary directory (about 3.1 GB, and a 6.2 GB
           weight cache beside it), load it cold through `build_engine` and
@@ -598,6 +607,89 @@ def _run_sessions(engine, n_sessions: int, seconds: float):
     return wall, latencies, events
 
 
+def _counter(name: str) -> float:
+    from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
+
+    return METRICS.snapshot()["counters"].get(name, 0.0)
+
+
+# the fallback ladder neutralized: every chunk is one pool job
+NEUTRAL = dict(logprob_thold=-1e9, entropy_thold=-1.0, compression_ratio_thold=1e9)
+
+
+def _session_run(engine, base_cfg, step_times: list, n_sessions: int, seconds: float = 10.0,
+                 **thresholds) -> dict:
+    """n_sessions StreamSession threads of `seconds` each (`_run_sessions`) over
+    the engine's slot pool, with `thresholds` replacing base_cfg's. Checks
+    that the server lives, that every session ended with one end event and
+    that the flash forward launched n_audio_layer times per encode and the
+    encodes are the admissions (plus any window-path encodes when the ladder
+    is armed: `window_encodes`). Returns the run's figures."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+
+    inner = engine.engine
+    server = inner._slot_server
+    pool = server.pool
+    inner.config = dataclasses.replace(base_cfg, **thresholds)
+    before = (pool.admit_calls, pool.admit_rows, pool.step_calls, pool.occupancy_sum,
+              _counter("asr_pool_fallback_retries_total"))
+    step_times.clear()
+    torch.cuda.reset_peak_memory_stats()
+    n_encode, restore = _count_encodes(W)
+    F.flash_attention_full.launches = 0
+    try:
+        wall, lat, events = _run_sessions(engine, n_sessions, seconds)
+        torch.cuda.synchronize()
+    finally:
+        launches = F.flash_attention_full.launches
+        restore()
+    after = (pool.admit_calls, pool.admit_rows, pool.step_calls, pool.occupancy_sum,
+             _counter("asr_pool_fallback_retries_total"))
+    d = [a - b for a, b in zip(after, before)]
+    assert server._dead is None and server._thread.is_alive(), server._dead
+    for i, evs in enumerate(events):
+        assert evs and evs[-1].end == 1 and sum(e.end for e in evs) == 1, (i, evs)
+    assert n_encode[0] >= d[0] and launches == inner.dims.n_audio_layer * n_encode[0], (
+        launches, n_encode[0], d[0])
+    return dict(wall=wall, lat=lat, events=events, admit_calls=d[0], admit_rows=d[1],
+                steps=d[2], occupancy=d[3], retries=d[4], launches=launches,
+                encodes=n_encode[0], window_encodes=n_encode[0] - d[0],
+                peak=torch.cuda.max_memory_allocated(), step_ms=1e3 * float(np.mean(step_times)))
+
+
+def _report_sessions(what: str, pool, r: dict, card: str) -> None:
+    import numpy as np
+
+    p50, p95 = np.percentile(r["lat"], [50, 95])
+    print(f"{what}: wall {r['wall']:.2f} s; chunk latency p50 {p50:.3f} s, "
+          f"p95 {p95:.3f} s ({len(r['lat'])} chunks); {r['admit_rows']} rows in "
+          f"{r['admit_calls']} admissions; {r['steps']} pool steps at "
+          f"{r['step_ms']:.2f} ms per step (host clock, with the retirement copy), "
+          f"mean occupancy {r['occupancy'] / max(r['steps'], 1):.2f} of {pool.S}; "
+          f"{r['retries']:.0f} pool retries; {r['encodes']} encodes ({r['window_encodes']} "
+          f"on the window path), {r['launches']} flash kernel launches; peak memory "
+          f"{r['peak'] / 2**30:.2f} GiB [{card}]")
+
+
+def _timed(pool, step_times: list):
+    """Wrap pool.step to append its host time to step_times (the step ends
+    in the retirement copy, which waits for the device); undo with
+    `del pool.step`."""
+    real_step = pool.step
+
+    def timed_step():
+        t = time.perf_counter()
+        out = real_step()
+        step_times.append(time.perf_counter() - t)
+        return out
+
+    pool.step = timed_step
+
+
 def phase_stream(card: str, engine) -> int:
     """Drive the port's streaming path: the port's StreamSession over the
     pooled BatchedEngine, a load run with the ladder neutralized and a run
@@ -605,9 +697,6 @@ def phase_stream(card: str, engine) -> int:
     import numpy as np
     import torch
 
-    from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
-    from speaksense_tpu_torch.models import whisper as W
-    from speaksense_tpu_torch.ops import flash as F
     from speaksense_tpu_torch.runtime.slots import _StreamJob
 
     inner = engine.engine
@@ -623,64 +712,18 @@ def phase_stream(card: str, engine) -> int:
         lg.addHandler(errors)
     base_cfg = inner.config
     step_times: list[float] = []
-    real_step = pool.step
+    _timed(pool, step_times)
 
-    def timed_step():
-        t = time.perf_counter()
-        out = real_step()   # ends in the retirement copy, which waits for the device
-        step_times.append(time.perf_counter() - t)
-        return out
-
-    pool.step = timed_step
-
-    def counter(name):
-        return METRICS.snapshot()["counters"].get(name, 0.0)
-
-    def run(n_sessions, **thresholds):
-        inner.config = dataclasses.replace(base_cfg, **thresholds)
-        before = (pool.admit_calls, pool.admit_rows, pool.step_calls, pool.occupancy_sum,
-                  counter("asr_pool_fallback_retries_total"))
-        step_times.clear()
-        torch.cuda.reset_peak_memory_stats()
-        n_encode, restore = _count_encodes(W)
-        F.flash_attention_full.launches = 0
-        try:
-            wall, lat, events = _run_sessions(engine, n_sessions, 10.0)
-            torch.cuda.synchronize()
-        finally:
-            launches = F.flash_attention_full.launches
-            restore()
-        after = (pool.admit_calls, pool.admit_rows, pool.step_calls, pool.occupancy_sum,
-                 counter("asr_pool_fallback_retries_total"))
-        d = [a - b for a, b in zip(after, before)]
-        assert server._dead is None and server._thread.is_alive(), server._dead
-        for i, evs in enumerate(events):
-            assert evs and evs[-1].end == 1 and sum(e.end for e in evs) == 1, (i, evs)
-        assert n_encode[0] == d[0] and launches == dims.n_audio_layer * n_encode[0], (
-            launches, n_encode[0], d[0])
-        return dict(wall=wall, lat=lat, events=events, admit_calls=d[0], admit_rows=d[1],
-                    steps=d[2], occupancy=d[3], retries=d[4], launches=launches,
-                    encodes=n_encode[0], peak=torch.cuda.max_memory_allocated(),
-                    step_ms=1e3 * float(np.mean(step_times)))
-
-    def report(name, r):
-        p50, p95 = np.percentile(r["lat"], [50, 95])
-        print(f"stream {name}: wall {r['wall']:.2f} s; chunk latency p50 {p50:.3f} s, "
-              f"p95 {p95:.3f} s ({len(r['lat'])} chunks); {r['admit_rows']} rows in "
-              f"{r['admit_calls']} admissions; {r['steps']} pool steps at "
-              f"{r['step_ms']:.2f} ms per step (host clock, with the retirement copy), "
-              f"mean occupancy {r['occupancy'] / max(r['steps'], 1):.2f} of {pool.S}; "
-              f"{r['retries']:.0f} pool retries; {r['encodes']} admission encodes, "
-              f"{r['launches']} flash kernel launches; peak memory "
-              f"{r['peak'] / 2**30:.2f} GiB [{card}]")
+    def run(n_sessions, seconds=10.0, **thresholds):
+        return _session_run(engine, base_cfg, step_times, n_sessions, seconds, **thresholds)
 
     try:
         # load: 64 sessions x 10 s = 2 chunks of 5 s and a 1 s tail each,
         # every chunk one greedy pool job
-        load = run(64, logprob_thold=-1e9, entropy_thold=-1.0, compression_ratio_thold=1e9)
-        report("load", load)
+        load = run(64, **NEUTRAL)
+        _report_sessions("stream load", pool, load, card)
         assert load["admit_rows"] == 64 * 3, load["admit_rows"]
-        assert load["retries"] == 0, load["retries"]
+        assert load["retries"] == 0 and load["window_encodes"] == 0, load["retries"]
 
         # ladder: 8 sessions, every gate armed: 24 chunks x 5 rungs x best_of 5
         final_temps: list[float] = []
@@ -696,8 +739,8 @@ def phase_stream(card: str, engine) -> int:
             ladder = run(8, logprob_thold=1e9, no_speech_thold=1.0, best_of=5)
         finally:
             del inner._pool_quality_gate
-        report("ladder", ladder)
-        assert ladder["retries"] == 24 * 5, ladder["retries"]
+        _report_sessions("stream ladder", pool, ladder, card)
+        assert ladder["retries"] == 24 * 5 and ladder["window_encodes"] == 0, ladder["retries"]
         assert ladder["admit_rows"] == 24 * (1 + 5 * 5), ladder["admit_rows"]
         assert final_temps == [1.0] * 24, final_temps
     finally:
@@ -707,14 +750,32 @@ def phase_stream(card: str, engine) -> int:
             lg.removeHandler(errors)
     assert not errors.records, [r.getMessage() for r in errors.records]
 
-    # the pool alone, with the server stopped: admissions of 8 windows of
-    # 5.12 s (device denoise, mel, encode, cross-KV, prefill) until all 64
-    # slots are full, then full-occupancy steps, each timed to a synchronize
     server.stop()
+    m = _pool_alone(pool, inner.tokenizer)
+    print(f"stream pool: admission of 8 windows {np.mean(m['admit_ms']):.2f} ms "
+          f"(median {np.median(m['admit_ms']):.2f}); step at a mean {m['occupancy']:.1f} of "
+          f"{pool.S} slots {np.mean(m['step_ms']):.2f} ms (median {np.median(m['step_ms']):.2f}); "
+          f"{m['busy_text']} [{card}]")
+    print(f"stream pool: largest kernels per step: {m['top_text']} [{card}]")
+    return load["launches"] + ladder["launches"]
+
+
+def _pool_alone(pool, tok, n_steps: int = 20) -> dict:
+    """The pool alone, its server stopped: from a reset, admissions of 8
+    windows of 5.12 s (device denoise, mel, encode, cross-KV, prefill) until
+    every slot is full, each timed to a synchronize; then n_steps steps,
+    each timed on the host (its retirement copy waits for the device); then
+    the device busy time per step over 10 more (`_device_busy_ms`). Resets
+    the pool after. Returns the figures."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch.runtime.slots import _StreamJob
+
     pool.reset()
     pcm = [(np.clip(_speech(5.12, seed=i), -1, 1) * 32767).astype(np.int16)
            for i in range(8)]
-    prompt = list(inner.tokenizer.sot_sequence("en"))
+    prompt = list(tok.sot_sequence("en"))
     admit_ms = []
     for _ in range(pool.S // 8):
         jobs = [_StreamJob(p, prompt, is_audio=True, denoise="spectral") for p in pcm]
@@ -726,33 +787,346 @@ def phase_stream(card: str, engine) -> int:
     assert pool.n_active == pool.S
     occ0 = pool.occupancy_sum
     step_ms = []
-    for _ in range(20):
+    for _ in range(n_steps):
         t = time.perf_counter()
         pool.step()
         step_ms.append(1e3 * (time.perf_counter() - t))
     occupancy = (pool.occupancy_sum - occ0) / len(step_ms)
-    busy = _device_busy_ms(pool, 10)
+    top: list = []
+    busy = _device_busy_ms(pool, 10, top)
     busy_text = ("device busy not measured (the profiler saw no device time)" if busy is None
                  else f"device busy {busy:.2f} ms per step, idle "
                       f"{100 * (1 - busy / np.median(step_ms)):.0f}% of the median step")
-    print(f"stream pool: admission of 8 windows {np.mean(admit_ms):.2f} ms "
-          f"(median {np.median(admit_ms):.2f}); step at a mean {occupancy:.1f} of {pool.S} "
-          f"slots {np.mean(step_ms):.2f} ms (median {np.median(step_ms):.2f}); {busy_text} "
-          f"[{card}]")
     pool.reset()
-    return load["launches"] + ladder["launches"]
+    top_text = "; ".join(f"{name[:60]} {ms:.2f} ms ({n} launches)" for name, ms, n in top)
+    return dict(admit_ms=admit_ms, step_ms=step_ms, occupancy=occupancy, busy=busy,
+                busy_text=busy_text, top_text=top_text)
 
 
-def _device_busy_ms(pool, n_steps: int) -> float | None:
+def _device_busy_ms(pool, n_steps: int, top: list | None = None) -> float | None:
     """Device time per full pool step: the kernels' own time (the
     profiler's "Self CUDA time total") over n_steps steps, traced with
-    device activity only. None when the profiler saw no device time."""
+    device activity only. None when the profiler saw no device time. A
+    `top` list receives the largest kernels as (name, ms per step, launches
+    per step)."""
     def steps():
         for _ in range(n_steps):
             pool.step()
 
-    busy = _profiled_device_ms(steps)
+    kernels: list = []
+    busy = _profiled_device_ms(steps, kernels)
+    if top is not None:
+        top.extend((name, ms / n_steps, n // n_steps) for name, ms, n in kernels)
     return None if busy is None else busy / n_steps
+
+
+BEAM_SIZE = 5
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _first_token_ok(r: dict, cfg) -> bool:
+    """The rules' first token: a timestamp no later than max_initial_ts."""
+    return r["n_sampled"] >= 1 and cfg.ts_begin <= int(r["tokens"][0]) <= cfg.max_initial_ts_tok
+
+
+def phase_beam(card: str) -> int:
+    """Drive beam search and the int8 paths at large-v3 width (BASELINE
+    config 4: 64 streams, beam = 5): `_beam_serving`, then `_int8_window`.
+    Returns the flash forward's launches of their drives."""
+    launches = _beam_serving(card)
+    _free_device()
+    return launches + _int8_window(card)
+
+
+def _beam_serving(card: str) -> int:
+    """An engine from `build_engine` with config.beam_size = 5 and the beam
+    pool's defaults (64 slots of K = 5, int8 self pages, cross-KV as
+    config.cross_kv_int8): 2 concurrent 30 s transcribe calls through the
+    window beam search; 64 StreamSession threads of 10 s through the beam
+    pool with the ladder neutralized, then one of 5 s with every gate armed,
+    whose retries take the window path; the pool alone (admission, steps, device
+    busy); a window beam call at B = 8; int8 against bf16 pages on one
+    window. Returns the flash forward's launches of the drives."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch.config import Config, EngineConfig
+    from speaksense_tpu_torch.main import build_engine
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.runtime.beam_slots import BeamSlotPool
+    from speaksense_tpu_torch.runtime.slots import _StreamJob
+
+    config = Config()
+    # 48 new tokens per window on the window path, 96 per pool chunk; every
+    # other knob (bf16, bf16 cross-KV, 64 slots, best_of 5) is the default
+    config.engine = EngineConfig(max_decode_len=96, beam_size=BEAM_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine(config, model="large-v3", device="cuda", seed=0, max_wait_ms=50.0,
+                          slot_serving=True)
+    torch.cuda.synchronize()
+    inner = engine.engine
+    server = inner._slot_server
+    pool = server.pool
+    dims = inner.dims
+    L = dims.n_audio_layer
+    assert isinstance(pool, BeamSlotPool), type(pool)
+    assert (pool.S, pool.K, pool.t_mel, pool.max_new, pool.t_text) == (64, BEAM_SIZE, 512, 96, 128)
+    pages = pool.state.pages
+    assert pool.self_int8 and pages.self_k.dtype == torch.int8
+    assert pages.ring_k.dtype == torch.bfloat16
+    assert pool.int8_kv == config.engine.cross_kv_int8 and pages.cross_k.dtype == torch.bfloat16
+    # the decoder blocks' weights a step reads: all but the cross-KV
+    # projections, which run at admission
+    weights = _nbytes(*(p for n, p in inner.model.decoder.blocks.named_parameters()
+                        if n.split(".")[1] not in ("ck", "cv")))
+    vocab = _nbytes(inner.model.decoder.tok_emb)
+    page_bytes = dict(self=_nbytes(pages.self_k, pages.self_v),
+                      scales=_nbytes(pages.self_ks, pages.self_vs),
+                      ring=_nbytes(pages.ring_k, pages.ring_v),
+                      cross=_nbytes(pages.cross_k, pages.cross_v, pages.cross_ks, pages.cross_vs),
+                      anc=_nbytes(pool.state.anc, pool.state.anc_ring))
+    step_bytes = weights + vocab + sum(page_bytes.values())
+    print(f"beam: engine with beam_size {BEAM_SIZE}, large-v3 random weights and a {pool.S}-slot "
+          f"K = {pool.K} beam pool in {time.perf_counter() - t0:.1f} s; pool pages: self-KV "
+          f"{page_bytes['self'] / 1e9:.3f} GB int8 ({pool.S * pool.K} rows x {pool.t_text} "
+          f"columns x {dims.n_text_layer} layers, K and V), per-token scales "
+          f"{page_bytes['scales'] / 1e9:.3f} GB f32, ring {page_bytes['ring'] / 1e9:.3f} GB bf16, cross-KV "
+          f"{page_bytes['cross'] / 1e9:.3f} GB bf16 (once per slot, {pool.n_audio_ctx} frames), "
+          f"ancestor tables {page_bytes['anc'] / 1e6:.1f} MB; a step reads at least "
+          f"{step_bytes / 1e9:.2f} GB (decoder blocks without ck/cv {weights / 1e9:.2f}, "
+          f"vocabulary "
+          f"projection {vocab / 1e9:.2f}, pool pages {sum(page_bytes.values()) / 1e9:.2f}), "
+          f"{1e3 * step_bytes / 3.35e12:.2f} ms at 3.35 TB/s; memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    cfg = pool.cfg
+    base_cfg = inner.config
+    errors = _ErrorRecords()
+    logger = logging.getLogger("speaksense_tpu_torch")
+    logger.addHandler(errors)
+    retired: list = []
+    real_retire = pool._retire
+
+    def recording_retire(finished):
+        done = real_retire(finished)
+        retired.extend(done)
+        return done
+
+    step_times: list[float] = []
+    window_calls: list = []
+    real_decode_windows = inner.decode_windows
+
+    def recording_decode_windows(mels, *a, **kw):
+        window_calls.append((int(mels.shape[0]), kw.get("beam_size"),
+                             tuple(kw.get("temperatures") or ())))
+        return real_decode_windows(mels, *a, **kw)
+
+    launches = 0
+    try:
+        # 2 concurrent 30 s requests through the window batcher: beam search
+        # (the ladder neutralized, so only the beam attempt runs)
+        inner.config = dataclasses.replace(base_cfg, **NEUTRAL)
+        inner.decode_windows = recording_decode_windows
+        n_encode, restore = _count_encodes(W)
+        F.flash_attention_full.launches = 0
+        batches0, windows0 = engine.batches_run, engine.windows_run
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            results, wall = _transcribe_concurrently(
+                engine, [_speech(30 + 2 * i, seed=500 + i) for i in range(2)])
+        finally:
+            n = F.flash_attention_full.launches
+            restore()
+            del inner.decode_windows
+        batches, windows = engine.batches_run - batches0, engine.windows_run - windows0
+        assert windows >= 2 and len(window_calls) == batches, (windows, window_calls)
+        assert all(c[1] is None and not c[2] for c in window_calls), window_calls
+        assert n_encode[0] == batches and n == L * n_encode[0], (n, n_encode[0], batches)
+        launches += n
+        print(f"beam: 2 concurrent 30 s transcribe calls through beam search (K = {BEAM_SIZE}, "
+              f"the ladder neutralized) in {wall:.2f} s; {windows} windows in {batches} "
+              f"decode_windows calls of sizes {[c[0] for c in window_calls]}; "
+              f"{sum(r.n_tokens for r in results)} tokens; {n_encode[0]} encodes, {n} flash "
+              f"kernel launches; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]")
+
+        # 64 sessions through the 64-slot K = 5 beam pool, ladder neutralized
+        pool._retire = recording_retire
+        _timed(pool, step_times)
+        load = _session_run(engine, base_cfg, step_times, 64, **NEUTRAL)
+        _report_sessions("beam load", pool, load, card)
+        assert load["admit_rows"] == 64 * 3 and load["retries"] == 0, load["admit_rows"]
+        assert load["window_encodes"] == 0 and len(retired) == load["admit_rows"], len(retired)
+        for job in retired:
+            r = job.future.result()
+            assert _first_token_ok(r, cfg), (r["n_sampled"], r["tokens"][:4])
+            assert np.isfinite(r["sum_logprob"]) and r["sum_logprob"] <= 0, r["sum_logprob"]
+            assert np.isfinite(r["avg_logprob"]) and 0 <= r["no_speech_prob"] <= 1
+        n_tok = [job.future.result()["n_sampled"] for job in retired]
+        print(f"beam load: {len(retired)} jobs retired, every first token a timestamp <= "
+              f"max_initial_ts and every score finite; best hypotheses of {min(n_tok)}-"
+              f"{max(n_tok)} tokens (mean {np.mean(n_tok):.1f}, "
+              f"{sum(t < pool.max_new for t in n_tok)} ended before the budget) [{card}]")
+        launches += load["launches"]
+
+        # one 5 s session with every gate armed (a chunk and the 0.5 s tail):
+        # a chunk's retries leave the beam pool (t = 0 only) for the window
+        # path at t = 0.2 with beam_size 1, which climbs the rest of the
+        # ladder with best_of rows, one rung after another
+        retired.clear()
+        window_calls.clear()
+        finals: list = []
+        real_gate = inner._pool_quality_gate
+
+        def recording_gate(raw, retry):
+            cand = real_gate(raw, retry)
+            finals.append(cand["temperature"])
+            return cand
+
+        inner._pool_quality_gate = recording_gate
+        inner.decode_windows = recording_decode_windows
+        try:
+            ladder = _session_run(engine, base_cfg, step_times, 1, seconds=5.0,
+                                  logprob_thold=1e9, no_speech_thold=1.0, best_of=5)
+        finally:
+            del inner._pool_quality_gate, inner.decode_windows
+        _report_sessions("beam ladder", pool, ladder, card)
+        chunks = ladder["admit_rows"]
+        assert chunks == 2 and ladder["retries"] == chunks, (chunks, ladder["retries"])
+        assert finals == [1.0] * chunks, finals
+        assert window_calls == [(1, 1, (0.2,))] * chunks, window_calls
+        # each retry decodes at 0.2, then 0.4 .. 1.0 with best_of rows: 5 encodes
+        assert ladder["window_encodes"] == 5 * chunks, ladder["window_encodes"]
+        launches += ladder["launches"]
+    finally:
+        inner.config = base_cfg
+        pool.__dict__.pop("step", None)
+        pool.__dict__.pop("_retire", None)
+        logger.removeHandler(errors)
+    assert not errors.records, [r.getMessage() for r in errors.records]
+
+    # the pool alone: admission of 8 windows, full-occupancy steps
+    server.stop()
+    torch.cuda.reset_peak_memory_stats()
+    m = _pool_alone(pool, inner.tokenizer)
+    busy = m["busy"]
+    busy_text = m["busy_text"] + ("" if busy is None else
+                                  f", {step_bytes / busy / 1e6:.0f} GB/s over the step's "
+                                  f"{step_bytes / 1e9:.2f} GB floor, "
+                                  f"{100 * 1e3 * step_bytes / 3.35e12 / busy:.1f}% of its "
+                                  f"{1e3 * step_bytes / 3.35e12:.2f} ms bound")
+    print(f"beam pool: admission of 8 windows {np.mean(m['admit_ms']):.2f} ms (median "
+          f"{np.median(m['admit_ms']):.2f}); step at a mean {m['occupancy']:.1f} of {pool.S} "
+          f"slots ({pool.K} hypotheses each) {np.mean(m['step_ms']):.2f} ms (median "
+          f"{np.median(m['step_ms']):.2f}, host clock); {busy_text}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    print(f"beam pool: largest kernels per step: {m['top_text']} [{card}]")
+
+    # the window beam search at B = 8 (30 s windows, 48 new tokens)
+    mel8 = inner.compute_mel(np.stack([_speech(30, seed=600 + i) for i in range(8)]))
+    inner.config = dataclasses.replace(base_cfg, **NEUTRAL)
+    try:
+        beam_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner.decode_windows(mel8, "en", beam_size=BEAM_SIZE)
+            beam_ms.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        greedy = inner.decode_windows(mel8, "en", beam_size=1)
+        greedy_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        inner.config = base_cfg
+    assert all(_first_token_ok(r, cfg) and np.isfinite(r["avg_logprob"]) for r in out)
+    print(f"beam window: decode_windows of 8 windows of 30 s at K = {BEAM_SIZE} "
+          f"(encode, cross-KV, prefill, up to 48 steps of 40 hypotheses) "
+          f"{beam_ms[0]:.1f} / {beam_ms[1]:.1f} ms, greedy {greedy_ms:.1f} ms; best "
+          f"hypotheses of {[r['n_sampled'] for r in out]} tokens [{card}]")
+
+    # int8 against bf16 self pages: one window through two one-slot beam
+    # pools on the same engine (printed, not gated)
+    pcm = (np.clip(_speech(5.12, seed=7), -1, 1) * 32767).astype(np.int16)
+    prompt = list(inner.tokenizer.sot_sequence("en"))
+    drift = []
+    for self_int8 in (False, True):
+        p = BeamSlotPool(inner, 1, pool.t_mel, pool.max_new, beam_size=BEAM_SIZE,
+                         self_int8=self_int8)
+        job = _StreamJob(pcm, prompt, is_audio=True)
+        p.admit_many([job])
+        while p.jobs:
+            p.step()
+        drift.append(job.future.result())
+        del p
+    a, b = drift
+    same = 0
+    while same < min(a["n_sampled"], b["n_sampled"]) and a["tokens"][same] == b["tokens"][same]:
+        same += 1
+    print(f"beam int8 pages: one 5 s window, best hypothesis with bf16 pages {a['n_sampled']} "
+          f"tokens, sum_logprob {a['sum_logprob']:.4f}; with int8 pages {b['n_sampled']} tokens, "
+          f"sum_logprob {b['sum_logprob']:.4f}; first {same} tokens equal; first 8: "
+          f"{[int(t) for t in a['tokens'][:8]]} / {[int(t) for t in b['tokens'][:8]]} "
+          f"[{card}]")
+    _stop(engine)
+    return launches
+
+
+def _int8_window(card: str) -> int:
+    """One 30 s window on an engine with int8 decoder weights, int8
+    cross-KV and int8 self-KV (128 new tokens after a 3-token prompt: past
+    one 128-column page, so self-KV is not skipped), checked to run those
+    paths and to finish with finite results. Returns its flash launches."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch.asr.engine import WhisperEngine
+    from speaksense_tpu_torch.config import EngineConfig
+    from speaksense_tpu_torch.models import decode as D
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+
+    q8cfg = EngineConfig(weights_int8=True, cross_kv_int8=True, self_kv_int8=True, **NEUTRAL)
+    t0 = time.perf_counter()
+    q8 = WhisperEngine.from_random("large-v3", config=q8cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert W.weights_are_int8(q8.model)
+    flags: list = []
+    real_tw = D.transcribe_window
+
+    def recording_transcribe_window(*a, **kw):
+        flags.append((kw["cross_kv_int8"], kw["self_kv_int8"]))
+        return real_tw(*a, **kw)
+
+    D.transcribe_window = recording_transcribe_window
+    n_encode, restore = _count_encodes(W)
+    F.flash_attention_full.launches = 0
+    try:
+        mel = q8.compute_mel(_speech(30, seed=700))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = q8.decode_windows(mel, "en", max_new_tokens=128)[0]
+        q8_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        n = F.flash_attention_full.launches
+        restore()
+        D.transcribe_window = real_tw
+    L = q8.dims.n_audio_layer
+    assert flags == [(True, True)], flags
+    assert n == L * n_encode[0] == L, (n, n_encode[0])
+    assert _first_token_ok(r, q8._rule_config(True, 128)) and np.isfinite(r["avg_logprob"]), r
+    print(f"beam int8 window: engine with int8 decoder weights, int8 cross-KV and int8 self-KV "
+          f"built in {build_s:.1f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB); one 30 s "
+          f"window, {r['n_sampled']} tokens in {q8_ms:.1f} ms, avg_logprob "
+          f"{r['avg_logprob']:.4f}, {n} flash kernel launches [{card}]")
+    del q8
+    _free_device()
+    return n
 
 
 # Gradients of the full-depth encoder, kernels against plain attention: the
@@ -765,9 +1139,10 @@ def _device_busy_ms(pool, n_steps: int) -> float | None:
 ENC_GRAD_REL_BOUND = 1e-1
 
 
-def _profiled_device_ms(fn) -> float | None:
+def _profiled_device_ms(fn, top: list | None = None) -> float | None:
     """Summed kernel time of fn() (the profiler's device activity). None
-    when the profiler saw no device time."""
+    when the profiler saw no device time. A `top` list receives the six
+    largest kernels as (name, ms, launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -776,8 +1151,12 @@ def _profiled_device_ms(fn) -> float | None:
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in events)
+    if top is not None:
+        events.sort(key=lambda e: -e.self_device_time_total)
+        top.extend((e.key, e.self_device_time_total / 1e3, e.count) for e in events[:6])
     return busy / 1e3 if busy > 0 else None
 
 
@@ -1227,7 +1606,7 @@ _PALLAS_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("kernel", "main", "stream", "grad", "ckpt")
+    all_phases = ("kernel", "main", "stream", "grad", "beam", "ckpt")
     ap.add_argument("--phase", choices=all_phases + ("all",), default="all")
     args = ap.parse_args()
     phases = all_phases if args.phase == "all" else (args.phase,)
@@ -1245,6 +1624,15 @@ def main() -> int:
 
     card = MB.card_name()
     print(card)
+    start = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """Print the wall time since the last lap (the script's limit is
+        1200 s, build and every phase included)."""
+        now = time.perf_counter()
+        print(f"wall: {what} {now - start[0]:.1f} s [{card}]")
+        start[0] = now
+
     t0 = time.perf_counter()
     so = F.build()
     print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
@@ -1286,6 +1674,7 @@ def main() -> int:
         records["flash_attn_fwd"].update(phase_kernel(card))
         for name, fields in phase_kernel_bwd(card).items():
             records[name].update(fields)
+    lap("build and kernel phase")
     if set(phases) - {"kernel"}:
         for r in records.values():
             r["launches"] = 0
@@ -1314,16 +1703,23 @@ def main() -> int:
         try:
             if "main" in phases:
                 count(phase_main(card, engine, n_requests=2))
+                lap("main phase")
             if "stream" in phases:
                 count(phase_stream(card, engine))
+                lap("stream phase")
             if "grad" in phases:
                 count(phase_grad(card, engine))
+                lap("grad phase")
         finally:
             _stop(engine)
         del engine
         _free_device()
+    if "beam" in phases:
+        count(phase_beam(card))
+        lap("beam phase")
     if "ckpt" in phases:
         count(phase_ckpt(card))
+        lap("ckpt phase")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "speaksense_tpu"))
     assert not leaked, leaked

@@ -3,21 +3,24 @@ behind the port's `AsrEngine` interface (`speaksense_tpu_torch/asr`).
 
 Covered: checkpoint loading (`from_pretrained`: ggml files of every quant
 type whisper.cpp ships, through the convert-once weight cache, and HF
-directories), random-weight and JAX-parameter construction, log-mel, batched
-window decoding with whisper's temperature-fallback ladder (greedy attempt,
-then best_of sampled candidate rows per pending window), language detection,
-the openai-style long-form seek loop with no-speech skipping and
+directories), random-weight and JAX-parameter construction, int8 decoder
+weights and int8 cross- and self-KV (`weights_int8`, `cross_kv_int8`,
+`self_kv_int8`), log-mel, batched window decoding with whisper's
+temperature-fallback ladder (a greedy or, with beam_size > 1, a beam-search
+attempt, then best_of sampled candidate rows per pending window), language
+detection, the openai-style long-form seek loop with no-speech skipping and
 previous-text conditioning, the reference's segment post-processing, and
 the streaming surface: stream-mode chunks through the greedy slot pool
 (`runtime/slots.py`) with device denoise, the pooled fallback ladder,
 no-speech suppression, conditioning context, session pipelining
 (`submit_stream_chunk`), oversized chunks split into pool-bucket
 sub-windows and the padded tail flush; a sub-bucket chunk without a pool
-takes the window path.
+takes the window path. With beam_size > 1 stream chunks ride the beam pool
+(`runtime/beam_slots.py`), whose fallback retries go through the window
+path at t > 0.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: beam search and the beam pool, word timestamps, VAD segmentation,
-multi-GPU sharding and the int8 weight/KV options.
+item: word timestamps, VAD segmentation and multi-GPU sharding.
 """
 
 from __future__ import annotations
@@ -51,8 +54,6 @@ SAMPLE_RATE = MEL.SAMPLE_RATE
 FALLBACK_TEMPS = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 
 _LATER = {
-    "int8": "int8 paths (int8 weights, int8 cross-KV, int8 self-KV)",
-    "beam": "beam search and the beam pool",
     "stream": "transcribe_audio_vad and word_timestamps",
     "multi": "multi-GPU",
 }
@@ -62,11 +63,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to speaksense_tpu_torch yet "
         f"(ROADMAP.md Queue 1, remaining: {_LATER[item]})")
-
-
-def _refuse_int8(config: EngineConfig) -> None:
-    if config.weights_int8 or config.cross_kv_int8 or config.self_kv_int8:
-        raise _not_ported("int8 weights / KV", "int8")
 
 
 @dataclass
@@ -176,7 +172,10 @@ class WhisperEngine(AsrEngine):
                  mel_filters: np.ndarray | None = None,
                  config: EngineConfig | None = None, name: str = "whisper", seed: int = 0):
         self.config = config or EngineConfig()
-        _refuse_int8(self.config)
+        if self.config.weights_int8 and not W.weights_are_int8(model):
+            # int8 decoder block weights, per output channel (whisper.cpp
+            # ships q5/q8 ggml models the same way)
+            W.quantize_block_weights(model)
         self.model = model
         self.dims = model.dims
         self.device = model.device
@@ -220,9 +219,12 @@ class WhisperEngine(AsrEngine):
         """Engine on a parameter pytree of numpy arrays in the JAX package's
         layout (what the checkpoint loaders give). q/k/v are fused on the
         host as the weights are copied to `device`: the port's blocks always
-        hold one fused projection, so `config.fuse_qkv` changes nothing."""
+        hold one fused projection, so `config.fuse_qkv` changes nothing.
+        With `config.weights_int8` the decoder blocks are quantized from the
+        f32 host weights on the way."""
         config = config or EngineConfig()
-        m = W.params_from_jax(np_params, dims, device=device, dtype=cls._dtype(config))
+        m = W.params_from_jax(np_params, dims, device=device, dtype=cls._dtype(config),
+                              weights_int8=config.weights_int8)
         return cls(m, tokenizer, mel_filters=mel_filters, config=config, name=name)
 
     @classmethod
@@ -235,7 +237,6 @@ class WhisperEngine(AsrEngine):
         from speaksense_tpu_torch.ckpt.ggml import load_ggml, params_from_ggml
 
         config = config or EngineConfig()
-        _refuse_int8(config)     # before reading gigabytes
         path = str(path)
         if not os.path.isfile(path):
             raise FileNotFoundError(f"no ggml checkpoint at {path}")
@@ -274,7 +275,6 @@ class WhisperEngine(AsrEngine):
         from speaksense_tpu_torch.ckpt.hf_dir import load_hf_dir
 
         config = config or EngineConfig()
-        _refuse_int8(config)
         if not os.path.isdir(path):
             raise FileNotFoundError(f"no HF checkpoint directory at {path}")
         params, dims = load_hf_dir(path)
@@ -327,16 +327,36 @@ class WhisperEngine(AsrEngine):
 
     # --------------------------------------------------------------- decoding
 
-    def _run_window(self, mels, prompt, prompt_len, sot_index, temps, with_ts: bool,
-                    max_new: int, suppress) -> dict:
-        cfg = D.RuleConfig.from_tokenizer(
+    def _rule_config(self, with_ts: bool, max_new: int) -> D.RuleConfig:
+        return D.RuleConfig.from_tokenizer(
             self.tokenizer, with_timestamps=with_ts,
             max_initial_ts=self.config.max_initial_ts, max_new_tokens=max_new)
+
+    def _run_window(self, mels, prompt, prompt_len, sot_index, temps, with_ts: bool,
+                    max_new: int, suppress) -> dict:
         n_audio_ctx = min(mels.shape[1] // 2, self.dims.n_audio_ctx)
+        # int8 self-KV pages only when the token budget spans more than one
+        # 128-column page (the reference's rule: below that, its flush cost
+        # offset the saving)
+        self_int8 = self.config.self_kv_int8 and prompt.shape[1] + max_new > 128
         out = D.transcribe_window(
-            self.model, cfg, suppress, mels, prompt,
+            self.model, self._rule_config(with_ts, max_new), suppress, mels, prompt,
             torch.as_tensor(temps, dtype=torch.float32, device=self.device),
-            self._rng, sot_index=sot_index, n_audio_ctx=n_audio_ctx, prompt_len=prompt_len)
+            self._rng, sot_index=sot_index, n_audio_ctx=n_audio_ctx, prompt_len=prompt_len,
+            cross_kv_int8=self.config.cross_kv_int8, self_kv_int8=self_int8)
+        return {k: out[k].cpu().numpy()
+                for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
+
+    def _run_beam(self, mels, prompt, prompt_len, sot_index, with_ts: bool, max_new: int,
+                  suppress, beam_size: int) -> dict:
+        """The window path's beam-search attempt (the JAX `_beam_fn`)."""
+        from speaksense_tpu_torch.models.beam import transcribe_window_beam
+
+        out = transcribe_window_beam(
+            self.model, self._rule_config(with_ts, max_new), suppress, mels, prompt,
+            beam_size=beam_size, n_audio_ctx=min(mels.shape[1] // 2, self.dims.n_audio_ctx),
+            prompt_len=prompt_len, sot_index=sot_index,
+            cross_kv_int8=self.config.cross_kv_int8)
         return {k: out[k].cpu().numpy()
                 for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
 
@@ -348,12 +368,12 @@ class WhisperEngine(AsrEngine):
                        context_tokens: list | None = None) -> list[dict]:
         """Decode a batch of mel windows with per-row temperature fallback.
         mels: (B, T_mel, n_mels); language: one code or a per-row list.
+        beam_size=None takes `config.beam_size`: with beam_size > 1 and no
+        row starting hot, the first attempt is beam search; retries sample.
         Returns per-row dicts with tokens/text/avg_logprob/no_speech_prob/
         compression_ratio/temperature."""
         if beam_size is None:
             beam_size = self.config.beam_size
-        if beam_size and beam_size > 1:
-            raise _not_ported("beam search", "beam")
         mels = torch.as_tensor(mels, device=self.device)
         B = mels.shape[0]
         langs = ([language] * B if (language is None or isinstance(language, str))
@@ -415,9 +435,14 @@ class WhisperEngine(AsrEngine):
             results[b] = cand
             pending[b] = False
 
-        # attempt 0: every row at its starting temperature (greedy by default)
-        out = self._run_window(mels, prompt, prompt_len, sot_index, temps,
-                               with_timestamps, max_new, suppress)
+        # attempt 0: every row at its starting temperature (greedy by
+        # default), or beam search when configured and no row starts hot
+        if beam_size and beam_size > 1 and not temps.any():
+            out = self._run_beam(mels, prompt, prompt_len, sot_index, with_timestamps,
+                                 max_new, suppress, beam_size)
+        else:
+            out = self._run_window(mels, prompt, prompt_len, sot_index, temps,
+                                   with_timestamps, max_new, suppress)
         for b in range(B):
             _settle(b, _candidate(out, b, temps[b]))
 
@@ -622,16 +647,23 @@ class WhisperEngine(AsrEngine):
         a larger one (e.g. 64) lets pooled streams carry previous-text
         conditioning. The pool holds one mel bucket (t_mel) but serves
         every chunk size: shorter chunks ride zero-padded when asked
-        (`pad_to_bucket`), oversized ones as split sub-windows. int8 pools
-        and beam pools are not ported."""
+        (`pad_to_bucket`), oversized ones as split sub-windows.
+
+        beam_size=None inherits `config.beam_size`: beam_size > 1 builds the
+        beam pool (`runtime/beam_slots.py`). int8_kv (int8 cross-KV)
+        defaults to `config.cross_kv_int8`; self_int8 (int8 self-KV pages)
+        defaults to on for beam pools, whose page reads dominate their step,
+        and off for greedy pools, as in the reference."""
         from speaksense_tpu_torch.runtime.slots import StreamingDecodeServer
 
         if beam_size is None:
             beam_size = self.config.beam_size or 1
+        if self_int8 is None:
+            self_int8 = beam_size > 1
         self._slot_server = StreamingDecodeServer(
             self, n_slots=n_slots or self.config.stream_slots, t_mel=t_mel, max_new=max_new,
             int8_kv=self.config.cross_kv_int8 if int8_kv is None else int8_kv,
-            self_int8=bool(self_int8), max_prompt=max_prompt, beam_size=beam_size)
+            self_int8=self_int8, max_prompt=max_prompt, beam_size=beam_size)
 
     @property
     def device_denoise(self) -> bool:
@@ -659,9 +691,12 @@ class WhisperEngine(AsrEngine):
         """whisper's temperature-fallback ladder on a pooled chunk.
         retry(temperature) resubmits the chunk's audio as best_of concurrent
         pool decodes at that temperature (per-slot temperatures: retries
-        stay continuously batched with live traffic); the best avg_logprob
-        wins (openai best_of rule), and a chunk that still fails at t = 1.0
-        keeps its last attempt, as decode_windows does."""
+        stay continuously batched with live traffic), or for a beam pool one
+        window-path decode that runs the rest of the ladder itself; the best
+        avg_logprob wins (openai best_of rule), and a chunk that still fails
+        at t = 1.0 keeps its last attempt, as decode_windows does. A
+        candidate that already carries its quality features (the window
+        path's) is taken as it is."""
         cand = self._pool_candidate(raw)
         if retry is None:
             return cand
@@ -674,7 +709,8 @@ class WhisperEngine(AsrEngine):
             METRICS.inc("asr_fallback_retries_total")
             METRICS.inc("asr_pool_fallback_retries_total")
             try:
-                cands = [self._pool_candidate(c) for c in retry(t)]
+                cands = [c if "compression_ratio" in c else self._pool_candidate(c)
+                         for c in retry(t)]
             except Exception as e:
                 # a failed resubmission (pool reset, server stopping) keeps
                 # the candidate the chunk already holds, as the window
@@ -690,8 +726,26 @@ class WhisperEngine(AsrEngine):
     def _pool_retry_factory(self, server, audio, language, task, context, denoise):
         """The retry(temperature) closure of one pooled chunk (see
         _pool_quality_gate): best_of concurrent pool resubmissions of the
-        chunk's submit-time audio at the rung's temperature."""
+        chunk's submit-time audio at the rung's temperature. A beam pool
+        decodes at t = 0 only, so its retry is one window-path decode of
+        the chunk's audio, denoised as the pool would have, at the rung's
+        temperature with beam_size=1 (whisper.cpp's beam to
+        greedy-sampling ladder); decode_windows climbs the rest of the
+        ladder with best_of itself."""
         best_of = max(1, int(self.config.best_of))
+        if getattr(server.pool, "K", 1) > 1:
+            def retry(temp: float) -> list[dict]:
+                a = (audio.astype(np.float32) / 32767.0 if audio.dtype == np.int16
+                     else audio)
+                if denoise:
+                    a = DSP.denoise_audio(a, DSP.DenoiseConfig(post_gain=1.0))
+                mel = self.compute_mel(a, pad_to=server.pool.t_mel)
+                return self.decode_windows(
+                    mel, language, task=task, max_new_tokens=server.pool.max_new,
+                    temperatures=[temp], context_tokens=[context] if context else None,
+                    beam_size=1)[:1]
+
+            return retry
 
         def retry(temp: float) -> list[dict]:
             futs = [server.submit_audio(audio, language=language, task=task,

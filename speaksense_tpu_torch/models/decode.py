@@ -155,24 +155,38 @@ def decode_loop(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
     return dict(tokens=tokens, n_sampled=n_sampled, sum_logprob=sum_lp)
 
 
+def ring_width(max_new: int) -> int:
+    """The window path's int8 self-KV ring: 16 rows, halved until it
+    divides the token budget, so flushes tile it (the reference's
+    `decode_loop`)."""
+    width = 16
+    while max_new % width:
+        width //= 2
+    return width
+
+
 @torch.no_grad()
 def transcribe_window(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
                       mel: torch.Tensor, prompt: torch.Tensor, temperature: torch.Tensor,
                       generator: torch.Generator | None = None,
                       sot_index: torch.Tensor | int = 0, n_audio_ctx: int | None = None,
-                      prompt_len: torch.Tensor | None = None) -> dict:
+                      prompt_len: torch.Tensor | None = None, cross_kv_int8: bool = False,
+                      self_kv_int8: bool = False) -> dict:
     """Encode one batch of windows and decode them to tokens.
 
     mel (B, T_mel, n_mels); prompt (B, P) right-padded, with prompt_len (B,)
     the true lengths; sot_index (B,) locates <|sot|> per row for the
-    no-speech probability. Returns the `decode_loop` outputs plus
+    no-speech probability. cross_kv_int8: per-channel int8 cross-KV;
+    self_kv_int8: int8 self-KV pages quantized at the ring's flush
+    boundaries (`W.decode_step`). Returns the `decode_loop` outputs plus
     avg_logprob (B,) and no_speech_prob (B,)."""
     B, P = prompt.shape
     dev = prompt.device
     if prompt_len is None:
         prompt_len = torch.full((B,), P, dtype=torch.long, device=dev)
     enc = W.encode(model, mel, n_ctx_out=n_audio_ctx)
-    cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens)
+    cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens, cross_int8=cross_kv_int8,
+                         self_int8=self_kv_int8, ring_width=ring_width(cfg.max_new_tokens))
     prefill_logits = W.decode_prefill(model, prompt, cache)
     rows = torch.arange(B, device=dev)
     sot_idx = torch.as_tensor(sot_index, dtype=torch.long, device=dev).expand(B)
@@ -193,7 +207,13 @@ class PoolState:
     sum, the no-speech probability read at admission, the sampling
     temperature, and the true and padded prompt lengths that place the
     slot's keys (`W.pool_mask`). Rows of free slots hold stale but finite
-    values and are masked by `active`."""
+    values and are masked by `active`.
+
+    With int8 self pages the steps' K/V go to the pages' ring at the pool's
+    in-chunk step (`ring_n` of `pool_step`) and every W steps the ring is
+    flushed into each slot's own columns: fcol is the column of the slot's
+    next flushed token, born the ring row of its first token in the current
+    chunk (rows below it belong to the slot's previous occupant)."""
 
     pages: W.KVCache
     tokens: torch.Tensor
@@ -208,34 +228,43 @@ class PoolState:
     temp: torch.Tensor
     plen: torch.Tensor
     ppad: torch.Tensor
+    fcol: torch.Tensor
+    born: torch.Tensor
 
     @classmethod
     def empty(cls, model: W.Whisper, n_slots: int, max_new: int, t_text: int,
-              n_audio_ctx: int, eot: int, device) -> "PoolState":
+              n_audio_ctx: int, eot: int, device, cross_int8: bool = False,
+              self_int8: bool = False, ring_width: int = 16) -> "PoolState":
         def z(dtype, *shape):
             return torch.zeros((n_slots, *shape), dtype=dtype, device=device)
 
-        return cls(pages=W.init_pool_pages(model, n_slots, t_text, n_audio_ctx, device),
+        pages = W.init_pool_pages(model, n_slots, t_text, n_audio_ctx, device,
+                                  cross_int8=cross_int8, self_int8=self_int8,
+                                  ring_width=ring_width)
+        return cls(pages=pages,
                    tokens=torch.full((n_slots, max_new), eot, dtype=torch.long, device=device),
                    last_logits=z(torch.float32, model.dims.n_vocab),
                    n_sampled=z(torch.long), last=z(torch.long), penult=z(torch.long),
                    last_ts=z(torch.long), active=z(torch.bool), sum_lp=z(torch.float32),
                    ns_prob=z(torch.float32), temp=z(torch.float32),
                    plen=torch.ones(n_slots, dtype=torch.long, device=device),
-                   ppad=torch.ones(n_slots, dtype=torch.long, device=device))
+                   ppad=torch.ones(n_slots, dtype=torch.long, device=device),
+                   fcol=torch.ones(n_slots, dtype=torch.long, device=device), born=z(torch.long))
 
 
 @torch.no_grad()
 def pool_step(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor, st: PoolState,
-              generator: torch.Generator | None, hot: bool) -> torch.Tensor:
+              generator: torch.Generator | None, hot: bool, ring_n: int = 0) -> torch.Tensor:
     """One token for every slot of the pool, in place on `st` (the JAX
     `SlotPool._build_step` body): logit rules, greedy argmax or, for slots
     with temperature > 0, Gumbel-max sampling (hot: whether any slot is hot,
     kept on the host so an all-greedy step never waits for the device), the
     token's log-probability, the token write, the model step at each slot's
     own position and column, and retirement at EOT or at the max_new cap.
-    A retired slot's temperature is cleared. Returns the (S,) bool of slots
-    that finished at this step."""
+    A retired slot's temperature is cleared. With int8 self pages the model
+    step writes ring row ring_n (the pool's steps modulo the ring's width)
+    and the step that fills the ring flushes it. Returns the (S,) bool of
+    slots that finished at this step."""
     filtered = apply_logit_rules(st.last_logits, cfg, suppress_mask, st.n_sampled,
                                  st.last, st.penult, st.last_ts)
     tok = _sample(filtered, st.temp, generator, hot)
@@ -252,10 +281,19 @@ def pool_step(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor, st
     # ppad + n (n = steps since admission while the slot is active); a
     # retired row's column is clamped and its writes are never read
     t_text = st.pages.self_k.shape[3]
-    col = (st.ppad + st.n_sampled).clamp(max=t_text - 1)
     pos = (st.plen + st.n_sampled).clamp(max=model.dims.n_text_ctx - 1)
-    mask = W.pool_mask(t_text, st.plen, st.ppad, col)
-    st.last_logits = W.decode_step_pool(model, tok, st.pages, pos, col, mask)
+    if st.pages.ring_k is None:
+        col = (st.ppad + st.n_sampled).clamp(max=t_text - 1)
+        mask = W.pool_mask(t_text, st.plen, st.ppad, col)
+        st.last_logits = W.decode_step_pool(model, tok, st.pages, pos, col, mask)
+    else:
+        # int8 pages: the slot's prompt and its flushed tokens [ppad, fcol)
+        # in int8, the chunk's earlier tokens [born, ring_n) in the ring
+        mask_c, mask_r = W.ring_masks(st.pages, st.plen, st.ppad, st.fcol, st.born, ring_n)
+        st.last_logits = W.decode_step_pool_ring(model, tok, st.pages, pos, ring_n, mask_c,
+                                                 mask_r)
+        if ring_n == st.pages.ring_k.shape[3] - 1:
+            st.fcol, st.born, _, _ = W.flush_ring(st.pages, st.fcol, st.born)
 
     hit_cap = still & (st.n_sampled + 1 >= max_new)
     st.penult = torch.where(still, st.last, st.penult)

@@ -11,9 +11,18 @@ KV memory: the pages are preallocated, one row per slot (`D.PoolState`,
 generation budget, and cross-KV (L, S, H, A, Dh). Admission writes a
 window's prefilled KV into its slot's row in place (`W.prefill_into_pool`);
 retirement only marks the slot free. Each slot decodes at its own position
-and writes its own column (`D.pool_step`), so the reference's ring buffer,
-circular pages, k-steps-per-dispatch scan and select-form writes, which
-work around XLA on the TPU, have no counterpart here.
+and writes its own column (`D.pool_step`), so the reference's circular
+pages, k-steps-per-dispatch scan and select-form writes, which work around
+XLA on the TPU, have no counterpart here.
+
+int8_kv stores the cross-KV in int8 with per-channel scales. self_int8
+stores the self-KV pages in int8 with per-token scales behind a ring of
+RING_WIDTH rows in the compute dtype: the pool's steps write ring row
+(steps mod RING_WIDTH), and the step that fills the ring quantizes it into
+each slot's own columns, so which of a slot's columns are int8 at a given
+step is the reference's (its pool flushes its 16-row ring every 16 global
+steps). With beam_size > 1 the server runs the beam pool
+(`runtime/beam_slots.py`) instead.
 
 Admission takes raw 16 kHz PCM (s16 as it came off the wire, or f32) or a
 log-mel: s16 dequantization, the denoise branch the host classifier picked,
@@ -49,8 +58,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"remaining: {item})")
 
 
-_INT8 = "int8 paths (int8 weights, int8 cross-KV, int8 self-KV)"
-_BEAM = "beam search and the beam pool"
 _MULTI = "multi-GPU"
 
 
@@ -76,10 +83,14 @@ class SlotPool:
     # rows per admission: the reference's largest admission bucket (eager
     # PyTorch needs no padding of a smaller batch to a bucket)
     ADMIT_BUCKET = 8
+    # rows of the int8 self pages' ring: the reference pool's ring_width
+    RING_WIDTH = 16
 
     def __init__(self, engine, n_slots: int, t_mel: int, max_new: int,
-                 max_prompt: int = 16):
+                 max_prompt: int = 16, int8_kv: bool = False, self_int8: bool = False):
         self.engine = engine
+        self.int8_kv = int8_kv
+        self.self_int8 = self_int8
         self.model = engine.model
         self.dims = engine.dims
         self.device = engine.device
@@ -110,14 +121,19 @@ class SlotPool:
         """(Re)build the device state and its host mirrors. Ends with a read
         from the device, so a sticky CUDA error raises here."""
         self.state = None  # let the old pages go before allocating new ones
-        self.state = D.PoolState.empty(self.model, self.S, self.max_new, self.t_text,
-                                       self.n_audio_ctx, self.cfg.eot, self.device)
+        self.state = self._empty_state()
         self.free: list[int] = list(range(self.S))
         self.jobs: dict[int, _StreamJob] = {}
         # host mirror of "some slot samples at t > 0": the all-greedy step
         # then never waits for the device to find out
         self._hot: set[int] = set()
         bool(self.state.active.any())
+
+    def _empty_state(self) -> D.PoolState:
+        return D.PoolState.empty(self.model, self.S, self.max_new, self.t_text,
+                                 self.n_audio_ctx, self.cfg.eot, self.device,
+                                 cross_int8=self.int8_kv, self_int8=self.self_int8,
+                                 ring_width=self.RING_WIDTH)
 
     def reset(self, error: Exception | None = None) -> None:
         """Fail every registered job and rebuild the pool from fresh state:
@@ -194,26 +210,11 @@ class SlotPool:
                 self.jobs[job.slot] = job
 
             dev = self.device
-            st = self.state
             slots = torch.as_tensor([j.slot for j in batch], dtype=torch.long, device=dev)
             plen = torch.as_tensor([len(j.prompt) for j in batch], dtype=torch.long, device=dev)
             sot = torch.as_tensor([j.sot_index for j in batch], dtype=torch.long, device=dev)
-            rows = torch.arange(take, device=dev)
-            enc = self._encode_batch(batch)
-            logits = W.prefill_into_pool(self.model, enc, torch.as_tensor(prompts, device=dev),
-                                         st.pages, slots)
-            st.last_logits[slots] = logits[rows, plen - 1]
-            # no-speech probability at the SOT position (openai's
-            # probs_at_sot), read at settle against no_speech_thold
-            st.ns_prob[slots] = torch.softmax(logits[rows, sot], dim=-1)[:, self.cfg.no_speech]
-            st.temp[slots] = torch.as_tensor([j.temperature for j in batch],
-                                             dtype=torch.float32, device=dev)
-            st.plen[slots] = plen
-            st.ppad[slots] = P
-            st.tokens[slots] = self.cfg.eot
-            for t in (st.n_sampled, st.last, st.penult, st.last_ts, st.sum_lp):
-                t[slots] = 0
-            st.active[slots] = True   # last: a failure above leaves the slots inactive
+            self._admit_rows(batch, self._encode_batch(batch),
+                             torch.as_tensor(prompts, device=dev), slots, plen, sot)
         except Exception as e:
             # roll the batch back: a failed admission must not kill the
             # server thread or strand these futures; the other slots'
@@ -232,25 +233,60 @@ class SlotPool:
         self.admit_rows += take
         return take
 
+    def _admit_rows(self, batch: list[_StreamJob], enc: torch.Tensor, prompts: torch.Tensor,
+                    slots: torch.Tensor, plen: torch.Tensor, sot: torch.Tensor) -> None:
+        """The device half of an admission: cross-KV and prefill into the
+        rows `slots`, and their decode state reset. Activates the rows
+        last, so a failure leaves them inactive."""
+        st = self.state
+        P = prompts.shape[1]
+        rows = torch.arange(len(batch), device=prompts.device)
+        logits = W.prefill_into_pool(self.model, enc, prompts, st.pages, slots)
+        st.last_logits[slots] = logits[rows, plen - 1]
+        # no-speech probability at the SOT position (openai's probs_at_sot),
+        # read at settle against no_speech_thold
+        st.ns_prob[slots] = torch.softmax(logits[rows, sot], dim=-1)[:, self.cfg.no_speech]
+        st.temp[slots] = torch.as_tensor([j.temperature for j in batch],
+                                         dtype=torch.float32, device=prompts.device)
+        st.plen[slots] = plen
+        st.ppad[slots] = P
+        st.fcol[slots] = P
+        st.born[slots] = self.ring_n
+        st.tokens[slots] = self.cfg.eot
+        for t in (st.n_sampled, st.last, st.penult, st.last_ts, st.sum_lp):
+            t[slots] = 0
+        st.active[slots] = True
+
     # ------------------------------------------------------------ decoding
+
+    @property
+    def ring_n(self) -> int:
+        """The ring row the next step writes: the pool's steps modulo the
+        ring's width (the reference's in-chunk step index)."""
+        return self.total_steps % self.RING_WIDTH
 
     def step(self) -> list[_StreamJob]:
         """One pool-wide decode step; returns the jobs that finished."""
         finished = D.pool_step(self.model, self.cfg, self.suppress, self.state,
-                               self.engine._rng, hot=bool(self._hot))
+                               self.engine._rng, hot=bool(self._hot), ring_n=self.ring_n)
         self.step_calls += 1
         self.total_steps += 1
         self.occupancy_sum += len(self.jobs)
         return self._retire(finished)
 
+    def _meta(self, finished: torch.Tensor) -> list[torch.Tensor]:
+        """What retirement reads, per slot: finished, n_sampled, the
+        log-probability sum and the no-speech probability (f32 bits in
+        int32), then the tokens (S, max_new)."""
+        st = self.state
+        return [finished.int(), st.n_sampled.int(), st.sum_lp.view(torch.int32),
+                st.ns_prob.view(torch.int32), st.tokens.int().reshape(-1)]
+
     def _retire(self, finished: torch.Tensor) -> list[_StreamJob]:
         """Complete the futures of the slots that finished at this step and
         recycle the slots. One packed device-to-host copy per step."""
-        st = self.state
         S = self.S
-        meta = torch.cat([finished.int(), st.n_sampled.int(),
-                          st.sum_lp.view(torch.int32), st.ns_prob.view(torch.int32),
-                          st.tokens.int().reshape(-1)]).cpu().numpy()
+        meta = torch.cat(self._meta(finished)).cpu().numpy()
         fin = meta[:S] != 0
         if not fin.any():
             return []
@@ -294,14 +330,18 @@ class StreamingDecodeServer:
     def __init__(self, engine, n_slots: int = 16, t_mel: int = 3000,
                  max_new: int = 128, int8_kv: bool = False, self_int8: bool = False,
                  max_prompt: int = 16, mesh=None, beam_size: int = 1):
-        if int8_kv or self_int8:
-            raise _not_ported("an int8 slot pool", _INT8)
-        if beam_size and beam_size > 1:
-            raise _not_ported("the beam slot pool", _BEAM)
         if mesh is not None:
             raise _not_ported("a sharded slot pool", _MULTI)
         self.engine = engine
-        self.pool = SlotPool(engine, n_slots, t_mel, max_new, max_prompt=max_prompt)
+        if beam_size and beam_size > 1:
+            from speaksense_tpu_torch.runtime.beam_slots import BeamSlotPool
+
+            self.pool = BeamSlotPool(engine, n_slots, t_mel, max_new, beam_size=beam_size,
+                                     max_prompt=max_prompt, int8_kv=int8_kv,
+                                     self_int8=self_int8)
+        else:
+            self.pool = SlotPool(engine, n_slots, t_mel, max_new, max_prompt=max_prompt,
+                                 int8_kv=int8_kv, self_int8=self_int8)
         self._queue: "queue.Queue[_StreamJob]" = queue.Queue()
         self._stop = threading.Event()
         # the fatal exception once the pool could not be rebuilt: new
@@ -330,6 +370,7 @@ class StreamingDecodeServer:
                context: list[int] | None = None, temperature: float = 0.0) -> Future:
         """A log-mel window (t_mel, n_mels). context: previous-text
         conditioning tokens; temperature > 0: a quality-fallback retry."""
+        self._check_temperature(temperature)
         prompt, sot_index = self._build_prompt(language, task, context)
         return self._put(_StreamJob(np.asarray(mel), prompt, sot_index=sot_index,
                                     temperature=float(temperature)))
@@ -341,6 +382,7 @@ class StreamingDecodeServer:
         kept as it is and dequantized on the device; other dtypes become
         f32 here. With denoise=True the host classifier picks the branch
         and the device runs it."""
+        self._check_temperature(temperature)
         n = self.pool.t_mel * MEL.HOP_LENGTH
         a = np.asarray(audio).reshape(-1)[:n]
         if a.dtype != np.int16:
@@ -356,6 +398,15 @@ class StreamingDecodeServer:
                                         if a.dtype == np.int16 else a)
         return self._put(_StreamJob(a, prompt, is_audio=True, denoise=branch,
                                     sot_index=sot_index, temperature=float(temperature)))
+
+    def _check_temperature(self, temperature: float) -> None:
+        """Beam pools decode at t = 0 only: a t > 0 submission is refused
+        rather than decoded greedily under a hot label. The engine routes
+        a beam pool's fallback retries through the window path
+        (`WhisperEngine._pool_retry_factory`)."""
+        if temperature > 0.0 and getattr(self.pool, "K", 1) > 1:
+            raise ValueError("beam pools are t=0 only; route t>0 retries through the "
+                             "window path (see engine._pool_retry_factory)")
 
     def _fatal(self, e2: Exception) -> None:
         """Declare the server dead after an unrecoverable pool failure: fail

@@ -334,6 +334,7 @@ def test_missing_checkpoint_raises(tmp_path):
         TEngine.from_hf_dir(str(tmp_path / "nope-dir"), device="cpu")
     with pytest.raises(FileNotFoundError):
         build_engine(Config(model_path=str(tmp_path / "nope.bin")), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 weights load like any others: a missing file still raises
+    with pytest.raises(FileNotFoundError, match="nope.bin"):
         TEngine.from_pretrained(str(tmp_path / "nope.bin"),
                                 config=EngineConfig(weights_int8=True), device="cpu")

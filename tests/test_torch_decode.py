@@ -1,7 +1,8 @@
 """Parity of the port's decoding (speaksense_tpu_torch.models.decode) with the
-JAX reference on shared tiny weights, both sides in float32 on the CPU: the
-logit rules, greedy window decoding (tokens exact), and the host-side
-segment split."""
+JAX reference on shared tiny weights on the CPU, both sides in float32 (and
+in bfloat16 for the window decode from shared encoder states): the logit
+rules, greedy window decoding (tokens exact), and the host-side segment
+split."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ from speaksense_tpu.models.tokenizer import Tokenizer as JTokenizer
 from speaksense_tpu_torch.models import decode as TD
 from speaksense_tpu_torch.models import whisper as TW
 from speaksense_tpu_torch.models.tokenizer import Tokenizer
+from test_torch_beam import (BF16_AVG_LOGPROB_ATOL, _bf16_params, _gelu_rounded_once,
+                             _jax_bf16)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,6 +126,52 @@ def test_greedy_without_timestamps_matches_jax(models, mel):
     np.testing.assert_array_equal(t["tokens"], j["tokens"])
     np.testing.assert_array_equal(t["n_sampled"], j["n_sampled"])
     assert (t["tokens"] < TOK.eot).sum() + (t["tokens"] == TOK.eot).sum() == t["tokens"].size
+
+
+@pytest.mark.parametrize("cross_kv_int8", [False, True])
+def test_greedy_window_bf16_matches_jax(models, mel, monkeypatch, cross_kv_int8):
+    """The greedy window decode in bfloat16 from the same encoder states:
+    the JAX `transcribe_window` after its encoder (cross-KV, prefill, the
+    fill-layout ring decode, where each step's own key enters the softmax
+    with an unrounded weight) against the port's. Tokens and n_sampled
+    equal, avg_logprob within BF16_AVG_LOGPROB_ATOL, the reference adjusted
+    as tests/test_torch_beam.py states."""
+    jparams, _ = models
+    np_params = JW.fuse_qkv_weights(JW.init_params_np(DIMS, seed=7))
+    tmodel = TW.params_from_jax(np_params, TDIMS, device="cpu", dtype=torch.bfloat16)
+    prompt, lens, _ = _prompts([[], [11, 22, 33]])
+    B, P = prompt.shape
+    enc = JW.encode(jparams, DIMS, jnp.asarray(mel[:B, :1024]), n_ctx_out=512)
+    enc = np.asarray(enc.astype(jnp.bfloat16), np.float32)
+    jcfg = JD.RuleConfig.from_tokenizer(JTOK, max_new_tokens=MAX_NEW)
+    tcfg = TD.RuleConfig.from_tokenizer(TOK, max_new_tokens=MAX_NEW)
+    sup = TOK.suppress_mask(suppress_non_speech=False, allow_speaker_turn=False)
+    monkeypatch.setattr(jax.nn, "gelu", _gelu_rounded_once)
+
+    def ref(p, e, pr, pl):
+        cache = JW.init_cache(DIMS, B, e.shape[1], dtype=jnp.bfloat16, t_text=128)
+        cross = JW.compute_cross_kv(p, DIMS, e, dtype=jnp.bfloat16, int8=cross_kv_int8)
+        names = ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale")
+        cache = {**cache, **dict(zip(names, cross))}
+        logits, cache = JW.decode_prefill(p, DIMS, pr, cache, prompt_len=pl)
+        return JD.decode_loop(p, DIMS, jcfg, jnp.asarray(sup), logits[jnp.arange(B), pl - 1],
+                              JW.arm_uniform_fill(cache, P), jnp.zeros((B,), jnp.float32),
+                              jax.random.PRNGKey(0), kv_write="ring")
+
+    j = _jax_bf16(ref, _bf16_params(np_params), jnp.asarray(enc),
+                  jnp.asarray(prompt.astype(np.int32)), jnp.asarray(lens.astype(np.int32)))
+    cache = TW.init_cache(tmodel, torch.from_numpy(enc), t_cap=P + MAX_NEW,
+                          cross_int8=cross_kv_int8)
+    logits = TW.decode_prefill(tmodel, torch.from_numpy(prompt), cache)
+    t = TD.decode_loop(tmodel, tcfg, torch.from_numpy(sup),
+                       logits[torch.arange(B), torch.from_numpy(lens) - 1], cache,
+                       torch.from_numpy(lens), P, torch.zeros(B))
+    np.testing.assert_array_equal(t["n_sampled"].numpy(), np.asarray(j["n_sampled"]))
+    np.testing.assert_array_equal(t["tokens"].numpy(), np.asarray(j["tokens"]))
+    assert t["n_sampled"].max() > 3
+    n = t["n_sampled"].numpy() + 1
+    np.testing.assert_allclose(t["sum_logprob"].numpy() / n, np.asarray(j["sum_logprob"]) / n,
+                               atol=BF16_AVG_LOGPROB_ATOL, rtol=0)
 
 
 def _random_state(rng, B, V):

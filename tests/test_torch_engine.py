@@ -141,7 +141,7 @@ def test_fallback_ladder_structure_matches_jax(np_params, speech):
     assert counts[0] == counts[1] == (10.0, [1.0, 1.0])
 
 
-def test_empty_audio_and_not_ported_options(engines, speech):
+def test_empty_audio_and_not_ported_options(engines, speech, np_params):
     jeng, teng = engines
     assert teng.transcribe(np.zeros(0, np.float32), AsrParams()).full_text == ""
     # a sub-bucket stream chunk without a pool takes the window path, with
@@ -154,16 +154,27 @@ def test_empty_audio_and_not_ported_options(engines, speech):
     assert got.n_tokens > 0 and len(got.segments) <= 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.transcribe(np.zeros(16000, np.float32), AsrParams(word_timestamps=True))
-    with pytest.raises(NotImplementedError, match="beam"):
-        teng.decode_windows(np.zeros((1, 3000, 80), np.float32), "en", beam_size=4)
-    with pytest.raises(NotImplementedError, match="int8"):
-        TEngine(teng.model, teng.tokenizer, config=EngineConfig(cross_kv_int8=True))
+    # beam search and the int8 options now run (held against JAX in
+    # test_torch_beam*.py and test_torch_int8.py); word timestamps still raise
+    mel = np.zeros((1, 3000, 80), np.float32)
+    beam = teng.decode_windows(mel, "en", beam_size=4, max_new_tokens=4)[0]
+    assert beam["temperature"] == 0.0 and beam["n_sampled"] <= 4
+    q8 = TEngine.from_jax_params(np_params, TDIMS, teng.tokenizer, device="cpu",
+                                 config=EngineConfig(**{**NO_FALLBACK, "cross_kv_int8": True,
+                                                        "self_kv_int8": True,
+                                                        "weights_int8": True}))
+    assert TW.weights_are_int8(q8.model)
+    assert q8.decode_windows(mel, "en", max_new_tokens=4)[0]["n_sampled"] <= 4
     # a missing checkpoint raises; there is no fallback to random weights
     with pytest.raises(FileNotFoundError, match="model.bin"):
         TEngine.from_ggml("model.bin")
-    for kwargs, match in ((dict(int8_kv=True), "int8"), (dict(beam_size=5), "beam")):
-        with pytest.raises(NotImplementedError, match=match):
-            teng.enable_slot_serving(n_slots=2, **kwargs)
+    for kwargs in (dict(int8_kv=True), dict(beam_size=5)):
+        teng.enable_slot_serving(n_slots=2, max_new=4, **kwargs)
+        try:
+            assert teng._slot_server.submit_audio(np.zeros(16000, np.float32)).result(
+                timeout=300)["n_sampled"] <= 4
+        finally:
+            teng.disable_slot_serving()
         assert teng._slot_server is None
 
 
@@ -242,7 +253,8 @@ for name in names:
     importlib.import_module(name)
 assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
         "speaksense_tpu_torch.ckpt.cache", "speaksense_tpu_torch.ckpt.hf_dir",
-        "speaksense_tpu_torch.serving.stream",
+        "speaksense_tpu_torch.serving.stream", "speaksense_tpu_torch.models.beam",
+        "speaksense_tpu_torch.runtime.beam_slots",
         "speaksense_tpu_torch.tools.microbench_encattn"} <= set(names), names
 
 from speaksense_tpu_torch.config import Config, EngineConfig
@@ -266,6 +278,14 @@ try:
     events = session.finish()
     assert events[-1].end == 1, events
     assert eng.engine._slot_server.pool.admit_rows == 2
+    # the same session through a beam pool with int8 self pages
+    eng.engine.disable_slot_serving()
+    eng.engine.enable_slot_serving(n_slots=2, max_new=4, beam_size=2)
+    assert type(eng.engine._slot_server.pool).__name__ == "BeamSlotPool"
+    session = StreamSession(eng, language="en", denoise=True)
+    for p in session.ingest(base64.standard_b64encode(pcm[:16000 * 6].tobytes())):
+        session.settle(p)
+    assert session.finish()[-1].end == 1
 finally:
     eng.engine.disable_slot_serving()
     eng.stop()
@@ -283,10 +303,12 @@ print("ok")
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port imports, and a ggml checkpoint loads through
+    """Every module of the port imports, the beam search and beam pool
+    modules included, and a ggml checkpoint loads through
     `build_engine(config)` and serves a pooled StreamSession with device
-    denoise end to end (ingest, settle, finish), without importing jax or
-    anything of the JAX package, by name or by file."""
+    denoise end to end (ingest, settle, finish), through the greedy pool and
+    then a beam pool, without importing jax or anything of the JAX package,
+    by name or by file."""
     ckpt = tmp_path / "tiny.bin"
     _write_tiny_ggml(ckpt)
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}

@@ -2,7 +2,7 @@
 package's `StreamingDecodeServer` on shared tiny weights (float32 on the
 CPU, JAX on its own CPU programs as tests/test_slots.py runs them), and the
 pool's mechanics: slot isolation, admission mid-decode, recycling, failure
-handling and the options that are not ported."""
+handling, the int8 and beam options, and the option that is not ported."""
 
 import time
 
@@ -303,9 +303,32 @@ def test_unrecoverable_failure_makes_the_server_dead(teng):
         server.stop()
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(int8_kv=True), "int8"), (dict(self_int8=True), "int8"),
-    (dict(beam_size=5), "beam"), (dict(mesh=object()), "multi-GPU")])
+@pytest.mark.parametrize("kwargs, match", [(dict(mesh=object()), "multi-GPU")])
 def test_options_not_ported_raise(teng, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         StreamingDecodeServer(teng, n_slots=2, t_mel=512, max_new=6, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs, pages", [
+    (dict(int8_kv=True), ("cross_k", torch.int8)),
+    (dict(self_int8=True), ("self_k", torch.int8)),
+    (dict(beam_size=5), ("anc", torch.long))])
+def test_int8_and_beam_options_serve(jeng, teng, kwargs, pages):
+    """int8 cross-KV, int8 self pages and a K = 5 beam pool (once options
+    that raised) build their pools and serve a window; the int8 pools give
+    the JAX pool's tokens with the same option (beam: tests of
+    test_torch_beam_slots.py)."""
+    ts = StreamingDecodeServer(teng, n_slots=2, t_mel=512, max_new=6, **kwargs)
+    js = JServer(jeng, n_slots=2, t_mel=512, max_new=6, **kwargs)
+    try:
+        name, dtype = pages
+        st = ts.pool.state
+        assert getattr(st.pages if hasattr(st.pages, name) else st, name).dtype == dtype
+        got = ts.submit_audio(_audio(1)).result(timeout=300)
+        want = js.submit_audio(_audio(1)).result(timeout=300)
+        assert 0 < got["n_sampled"] <= 6 and np.isfinite(got["sum_logprob"])
+        if "beam_size" not in kwargs:
+            _assert_same(want, got)
+    finally:
+        ts.stop()
+        js.stop()
