@@ -3,10 +3,10 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase kernel    # or main, stream, grad, beam, ckpt
+    python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, beam, ckpt
 
 It first compiles the hand-written CUDA kernels from the sources in the
-tree, then runs its phases; main and stream share one set of
+tree, then runs its phases; main, stream, grad and words share one set of
 large-v3-width random weights:
   kernel  hold each kernel against its plain PyTorch version on the card at
           the shapes of the main paths (30 s windows and 5 s slot
@@ -37,6 +37,18 @@ large-v3-width random weights:
           launch counts (32 forward, 32 dQ-with-delta and 32 dK/dV, no
           standalone delta) and the gradients against the same encoder with
           the plain attention, then serve one request on the same engine;
+  words   VAD segmentation and word timestamps through the window batcher
+          (`transcribe_audio_vad` with word timestamps on 67.5 s of
+          pseudo-speech with two silent gaps: three spans, four windows,
+          the ladder neutralized): check the spans, each segment's words
+          (inside its span, non-decreasing starts in a window) and the
+          flash forward's launches (32 per decode encode and 32 per aligned
+          window's second encode), print each window's decode, align
+          encode, cross-attention weights, device alignment matrix, host DTW
+          and bytes to the host, hold one window's device alignment matrix
+          against the numpy one on 32 heads, then parse a 44.1 kHz stereo
+          WAV as a stream and run the CLI's quality, voiceprint, emotion and
+          denoise;
   beam    on an engine with beam_size 5 (BASELINE config 4: 64 streams,
           beam = 5): 2 concurrent 30 s requests through the window beam
           search, 64 session threads through the 64-slot K = 5 beam pool
@@ -1313,6 +1325,302 @@ def phase_grad(card: str, engine) -> dict:
     return counts
 
 
+# the device alignment matrix against numpy's float64 evaluation of the same
+# f32 weights; numpy's f32 evaluation, printed beside it, carries its own
+# rounding, up to about 1e-5 where a frame's weights barely vary
+WORDS_MATRIX_ATOL = 1e-5
+# heads per upper-half layer given to the numpy reference (16 layers x 2 = 32
+# of the 320 heads), so its host median filter stays a few seconds
+HOST_CHECK_HEADS = 2
+
+
+def _gapped_speech(seed: int):
+    """67.5 s at 16 kHz: 34 s of pseudo-speech, 4 s of silence, 14 s, 3.5 s of
+    silence, 12 s: three VAD spans, the first of two windows."""
+    import numpy as np
+
+    def silence(seconds):
+        return np.zeros(int(16000 * seconds), np.float32)
+
+    return np.concatenate([_speech(34, seed), silence(4), _speech(14, seed + 1), silence(3.5),
+                           _speech(12, seed + 2)])
+
+
+def _staged(fn, times: list, peaks: list, high: list, events: bool = True):
+    """fn wrapped to append its time in ms to times (CUDA events, or the host
+    clock when events is False) and to peaks the device memory it allocated
+    at its peak beyond what was allocated when it started. Each call resets
+    the device's peak counter, so high[0] keeps the highest peak seen."""
+    import torch
+
+    def staged(*args, **kwargs):
+        high[0] = max(high[0], torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) if events else 1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        peaks.append(peak - base)
+        high[0] = max(high[0], peak)
+        return out
+
+    return staged
+
+
+def phase_words(card: str, engine) -> int:
+    """Drive VAD segmentation and word timestamps through the window
+    batcher: `BatchedEngine.transcribe_audio_vad` with word timestamps on
+    67.5 s of gapped pseudo-speech (three spans, four windows or more), the
+    ladder neutralized, and a vocab whose pieces start with a space in
+    place of the synthetic one (the same special tokens; its pieces have no
+    spaces, which makes a window one word). Checks the spans, every
+    segment's words and the forward
+    kernel's launches (32 per decode encode, 32 more per aligned window),
+    prints each window's stage times, holds the device alignment matrix of
+    one window against the numpy one, then runs the host DSP. Returns the
+    forward kernel's launches."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch.asr import AsrParams
+    from speaksense_tpu_torch.audio.vad import speech_segments
+    from speaksense_tpu_torch.models import align as A
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.models.tokenizer import Tokenizer
+    from speaksense_tpu_torch.ops import flash as F
+
+    inner = engine.engine
+    dims = inner.dims
+    synthetic = inner.tokenizer
+    spaced = Tokenizer.from_vocab([b" w%d" % i for i in range(50257)]
+                                  + [b""] * (dims.n_vocab - 50257))
+    assert (spaced.sot_sequence("en"), spaced.eot, spaced.ts_begin) == (
+        synthetic.sot_sequence("en"), synthetic.eot, synthetic.ts_begin)
+    audio = _gapped_speech(seed=500)
+    spans = speech_segments(audio)
+    assert len(spans) == 3, spans
+    t = {k: [] for k in ("decode", "encode", "cross", "matrix", "dtw", "bytes")}
+    mem = {k: [] for k in ("decode", "encode", "cross", "matrix")}
+    high = [0]
+    span_sizes, aligned, n_encode = [], [], {"decode": 0, "align": 0}
+    aligning = [False]
+    real = {"encode": W.encode, "word_timestamps": A.word_timestamps,
+            "cross": A.cross_attention_weights, "matrix": A._alignment_matrix_torch,
+            "dtw": A.dtw_path, "decode": inner.decode_windows,
+            "transcribe": inner.transcribe_audio, "attach": inner._attach_words}
+    # the stages' wrappers below call these
+    timed_encode = _staged(real["encode"], t["encode"], mem["encode"], high)
+    timed_matrix = _staged(real["matrix"], t["matrix"], mem["matrix"], high)
+
+    def encode(*args, **kwargs):
+        if aligning[0]:
+            n_encode["align"] += 1
+            return timed_encode(*args, **kwargs)
+        n_encode["decode"] += 1
+        return real["encode"](*args, **kwargs)
+
+    decode_windows = _staged(real["decode"], t["decode"], mem["decode"], high, events=False)
+
+    def transcribe_audio(audio, params, decode_window=None):
+        span_sizes.append(audio.size)
+        return real["transcribe"](audio, params, decode_window)
+
+    def attach_words(*args, **kwargs):
+        aligning[0] = True
+        try:
+            return real["attach"](*args, **kwargs)
+        finally:
+            aligning[0] = False
+
+    def word_timestamps(model, tok, tokens, enc, **kwargs):
+        words = real["word_timestamps"](model, tok, tokens, enc, **kwargs)
+        aligned.append(dict(tokens=tokens, enc=enc, kw=kwargs, words=words))
+        return words
+
+    def alignment_matrix(*args):
+        out = timed_matrix(*args)
+        t["bytes"].append(out.numel() * out.element_size())
+        return out
+
+    def dtw(cost):
+        t0 = time.perf_counter()
+        out = real["dtw"](cost)
+        t["dtw"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    base_cfg = inner.config
+    modules = [(W, "encode", encode), (A, "word_timestamps", word_timestamps),
+               (A, "dtw_path", dtw), (A, "_alignment_matrix_torch", alignment_matrix),
+               (A, "cross_attention_weights",
+                _staged(real["cross"], t["cross"], mem["cross"], high))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in modules]
+    for mod, name, fn in modules:
+        setattr(mod, name, fn)
+    inner.decode_windows, inner.transcribe_audio = decode_windows, transcribe_audio
+    inner._attach_words = attach_words
+    inner.config = dataclasses.replace(base_cfg, **NEUTRAL)
+    inner.tokenizer = spaced
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    F.flash_attention_full.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = engine.transcribe_audio_vad(audio, AsrParams(language="en",
+                                                              word_timestamps=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        launches = F.flash_attention_full.launches
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        del inner.decode_windows, inner.transcribe_audio, inner._attach_words
+        inner.config, inner.tokenizer = base_cfg, synthetic
+    peak = max(high[0], torch.cuda.max_memory_allocated())
+
+    # the spans are the VAD's, and each segment's words lie in its span
+    assert span_sizes == [e - s for s, e in spans], (span_sizes, spans)
+    windows = len(t["decode"])
+    assert windows >= 4 and len(aligned) == n_encode["align"] >= 3, (windows, len(aligned))
+    assert launches == dims.n_audio_layer * (n_encode["decode"] + n_encode["align"]), (
+        launches, n_encode)
+    assert n_encode["decode"] == windows, (n_encode, windows)
+    secs = [(s / 16000, e / 16000) for s, e in spans]
+    n_words = 0
+    for seg in result.segments:
+        assert seg.words is not None, seg
+        lo, hi = next(span for span in secs if span[0] - 1e-6 <= seg.start <= span[1] + 1e-6)
+        for w in seg.words:
+            assert lo - 1e-3 <= w["start"] <= w["end"] <= hi + 1e-3, (w, lo, hi)
+        n_words += len(seg.words)
+    assert result.language == "en" and n_words > 0, (result.language, n_words)
+    for a in aligned:
+        starts = [w["start"] for w in a["words"]]
+        assert starts == sorted(starts) and all(w["start"] <= w["end"] for w in a["words"])
+    n_text = [sum(tok < inner.tokenizer.eot for tok in a["tokens"]) for a in aligned]
+    print(f"words: transcribe_audio_vad of {audio.size / 16000:.1f} s (3 spans of "
+          f"{', '.join(f'{b - a:.2f}' for a, b in secs)} s) with word timestamps in "
+          f"{wall:.2f} s: {windows} windows decoded, {len(aligned)} aligned "
+          f"({n_text} text tokens), {len(result.segments)} segments, {n_words} words; "
+          f"{n_encode['decode']} decode + {n_encode['align']} align encodes, {launches} flash "
+          f"kernel launches; peak memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - resident) / 2**30:.2f} GiB above the engine's resident "
+          f"{resident / 2**30:.2f} GiB [{card}]")
+
+    def gib(x):
+        return f"+{x / 2**30:.3f} GiB"
+
+    print(f"words: per window, decode (host clock, B = 1, 48 new tokens at most) ms "
+          f"{[round(x, 2) for x in t['decode']]}, its peak memory "
+          f"{[gib(x) for x in mem['decode']]} [{card}]")
+    for i in range(len(aligned)):
+        print(f"words: aligned window {i}: align encode {t['encode'][i]:.2f} ms "
+              f"({gib(mem['encode'][i])}), cross_attention_weights {t['cross'][i]:.2f} ms "
+              f"({gib(mem['cross'][i])}), device alignment matrix {t['matrix'][i]:.2f} ms "
+              f"({gib(mem['matrix'][i])}) (CUDA events; peak memory beyond the stage's "
+              f"start), host DTW {t['dtw'][i]:.2f} ms, {t['bytes'][i]} bytes to the host "
+              f"[{card}]")
+
+    # the largest window's device alignment matrix against the numpy one on
+    # the same weights, copied to the host, over HOST_CHECK_HEADS heads of
+    # each layer; and the device matrix's own memory at every head
+    a = max(aligned, key=lambda a: t["bytes"][aligned.index(a)])
+    prefix = inner.tokenizer.sot_sequence("en", timestamps=False)
+    text = [tok for tok in a["tokens"] if tok < inner.tokenizer.eot]
+    forced = torch.as_tensor([prefix + text + [inner.tokenizer.eot]], device=a["enc"].device)
+    all_heads = A.cross_attention_weights(inner.model, forced, a["enc"])[
+        :, 0, :, len(prefix):len(prefix) + len(text)]
+    n_frames = min(dims.n_audio_ctx, int(a["kw"]["audio_seconds"] * A.FRAMES_PER_SECOND))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    A._alignment_matrix_torch(all_heads, n_frames)
+    matrix_peak = torch.cuda.max_memory_allocated() - before
+    weights = all_heads[:, :HOST_CHECK_HEADS]
+    dev = A._alignment_matrix_torch(weights, n_frames).cpu().numpy()
+    host_w = weights.cpu().numpy()
+    t0 = time.perf_counter()
+    ref32 = A._alignment_matrix(host_w, n_frames)
+    host_s = time.perf_counter() - t0
+    ref = A._alignment_matrix(host_w.astype(np.float64), n_frames)
+    err = float(np.abs(dev - ref).max())
+    assert dev.shape == ref.shape == (len(text), n_frames) and np.isfinite(dev).all()
+    print(f"words: alignment matrix ({len(text)}, {n_frames}) over "
+          f"{HOST_CHECK_HEADS * (dims.n_text_layer - dims.n_text_layer // 2)} upper-half heads, "
+          f"device against numpy on the host (float64 evaluation of the same f32 weights): "
+          f"max_abs_err {err:.3e} (bound {WORDS_MATRIX_ATOL}); against numpy in f32 "
+          f"{float(np.abs(dev - ref32).max()):.3e}; numpy f32 host time at those heads "
+          f"{1e3 * host_s:.1f} ms; "
+          f"the device matrix at all {all_heads.shape[0] // 2 * all_heads.shape[1]} heads "
+          f"allocates {matrix_peak / 2**30:.2f} GiB at its peak beyond its "
+          f"{all_heads.numel() * 4 / 2**30:.2f} GiB of weights [{card}]")
+    assert err <= WORDS_MATRIX_ATOL, err
+    _host_dsp(card)
+    return launches
+
+
+def _host_dsp(card: str) -> None:
+    """The host-DSP modules on one 44.1 kHz stereo WAV: the streaming file
+    parser in process, and the port's CLI `quality`, `voiceprint
+    --compare-with`, `emotion` and `denoise` in subprocesses (started
+    together), each checked against the same call in process."""
+    import numpy as np
+
+    from speaksense_tpu_torch.audio.dsp import DenoiseConfig
+    from speaksense_tpu_torch.audio.emotion import LABELS, classify_emotion
+    from speaksense_tpu_torch.audio.io import load_audio, parse_audio_file_stream, write_wav
+    from speaksense_tpu_torch.audio.quality import evaluate_audio_quality
+    from speaksense_tpu_torch.audio.resample import resample
+    from speaksense_tpu_torch.audio.voiceprint import cosine_similarity, voiceprint_embedding
+
+    with tempfile.TemporaryDirectory() as tmp:
+        left = resample(_speech(10, seed=600), 16000, 44100)
+        right = 0.6 * left + 0.01 * np.random.default_rng(601).standard_normal(left.size)
+        stereo = Path(tmp) / "stereo.wav"
+        write_wav(stereo, np.stack([left, right], 1).reshape(-1), rate=44100, channels=2)
+        other = Path(tmp) / "other.wav"
+        write_wav(other, _speech(6, seed=602))
+        clean = Path(tmp) / "clean.wav"
+        t0 = time.perf_counter()
+        frames: list = []
+        parse_audio_file_stream(stereo, DenoiseConfig(), frames.append)
+        parse_s = time.perf_counter() - t0
+        mono = load_audio(stereo)
+        assert len(frames) == -(-mono.size // 2048), (len(frames), mono.size)
+        assert all(f.shape == (2048,) and np.isfinite(f).all() for f in frames)
+        commands = {"quality": [str(stereo)], "voiceprint": [str(stereo), "--compare-with",
+                                                              str(other)],
+                    "emotion": [str(stereo)], "denoise": [str(stereo), "--output", str(clean)]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "speaksense_tpu_torch.cli", name, *args], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, args in commands.items()}
+        out = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            assert proc.returncode == 0, (name, stderr[-2000:])
+            out[name] = stdout
+        cli_s = time.perf_counter() - t0
+        assert json.loads(out["quality"]) == evaluate_audio_quality(mono).to_dict()
+        vp = json.loads(out["voiceprint"])
+        sim = cosine_similarity(voiceprint_embedding(mono), voiceprint_embedding(load_audio(other)))
+        assert vp["similarity"] == round(sim, 6) and vp["match"] is (sim >= vp["threshold"]), vp
+        emo = json.loads(out["emotion"])
+        label, feats = classify_emotion(mono)
+        assert emo == {"emotion": label, "features": feats.to_dict()} and label in LABELS, emo
+        assert out["denoise"].strip() == str(clean) and load_audio(clean).size == mono.size
+    print(f"words: host DSP: parse_audio_file_stream of 10 s of 44.1 kHz stereo, "
+          f"{len(frames)} frames, in {1e3 * parse_s:.1f} ms; CLI quality, voiceprint "
+          f"--compare-with (similarity {vp['similarity']}), emotion ({label}) and denoise in "
+          f"four processes together, {cli_s:.1f} s [{card}]")
+
+
 def _seeded_ggml_tensors(dims, seed: int):
     """(name, f32 array) of every tensor of a whisper checkpoint of `dims`,
     in whisper.cpp's names, order and (out, in) layout, each drawn from its
@@ -1606,7 +1914,7 @@ _PALLAS_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("kernel", "main", "stream", "grad", "beam", "ckpt")
+    all_phases = ("kernel", "main", "stream", "grad", "words", "beam", "ckpt")
     ap.add_argument("--phase", choices=all_phases + ("all",), default="all")
     args = ap.parse_args()
     phases = all_phases if args.phase == "all" else (args.phase,)
@@ -1686,7 +1994,7 @@ def main() -> int:
         for name, n in launches.items():
             records[name]["launches"] += n
 
-    if set(phases) & {"main", "stream", "grad"}:
+    if set(phases) & {"main", "stream", "grad", "words"}:
         config = Config()
         # max_new = max_decode_len // 2 = 48 tokens per window on the window
         # path, where random weights climb the whole ladder; every other
@@ -1710,6 +2018,9 @@ def main() -> int:
             if "grad" in phases:
                 count(phase_grad(card, engine))
                 lap("grad phase")
+            if "words" in phases:
+                count(phase_words(card, engine))
+                lap("words phase")
         finally:
             _stop(engine)
         del engine

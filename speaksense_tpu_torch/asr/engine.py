@@ -9,18 +9,21 @@ weights and int8 cross- and self-KV (`weights_int8`, `cross_kv_int8`,
 temperature-fallback ladder (a greedy or, with beam_size > 1, a beam-search
 attempt, then best_of sampled candidate rows per pending window), language
 detection, the openai-style long-form seek loop with no-speech skipping and
-previous-text conditioning, the reference's segment post-processing, and
-the streaming surface: stream-mode chunks through the greedy slot pool
-(`runtime/slots.py`) with device denoise, the pooled fallback ladder,
-no-speech suppression, conditioning context, session pipelining
-(`submit_stream_chunk`), oversized chunks split into pool-bucket
-sub-windows and the padded tail flush; a sub-bucket chunk without a pool
-takes the window path. With beam_size > 1 stream chunks ride the beam pool
+previous-text conditioning, word timestamps by cross-attention DTW
+(`models/align.py`, each window encoded again for the alignment, as the
+reference does), VAD-segmented long-form transcription
+(`transcribe_audio_vad`, spans from `audio/vad.py`), the reference's
+segment post-processing, and the streaming surface: stream-mode chunks
+through the greedy slot pool (`runtime/slots.py`) with device denoise,
+the pooled fallback ladder, no-speech suppression, conditioning context,
+session pipelining (`submit_stream_chunk`), oversized chunks split into
+pool-bucket sub-windows and the padded tail flush; a sub-bucket chunk
+without a pool takes the window path. With beam_size > 1 stream chunks ride the beam pool
 (`runtime/beam_slots.py`), whose fallback retries go through the window
 path at t > 0.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: word timestamps, VAD segmentation and multi-GPU sharding.
+Not ported yet, raising NotImplementedError that names its ROADMAP item:
+multi-GPU sharding.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from speaksense_tpu_torch.asr import AsrEngine, AsrParams, TranscribeResult, Tra
 from speaksense_tpu_torch.asr import postprocess as PP
 from speaksense_tpu_torch.audio import dsp as DSP
 from speaksense_tpu_torch.audio import mel as MEL
+from speaksense_tpu_torch.audio.vad import speech_segments
+from speaksense_tpu_torch.models import align as A
 from speaksense_tpu_torch.models import decode as D
 from speaksense_tpu_torch.config import EngineConfig
 from speaksense_tpu_torch.models import whisper as W
@@ -53,16 +58,10 @@ SAMPLE_RATE = MEL.SAMPLE_RATE
 # whisper temperature fallback schedule (openai + whisper.cpp)
 FALLBACK_TEMPS = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 
-_LATER = {
-    "stream": "transcribe_audio_vad and word_timestamps",
-    "multi": "multi-GPU",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to speaksense_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, remaining: {_LATER[item]})")
+        f"(ROADMAP.md Queue 1, remaining: multi-GPU)")
 
 
 @dataclass
@@ -300,7 +299,7 @@ class WhisperEngine(AsrEngine):
         return cls.from_ggml(path, config=config, device=device)
 
     def shard(self, mesh) -> None:
-        raise _not_ported("multi-GPU sharding", "multi")
+        raise _not_ported("multi-GPU sharding")
 
     # ------------------------------------------------------------------ audio
 
@@ -489,9 +488,8 @@ class WhisperEngine(AsrEngine):
         timestamp boundaries (openai-style seek), with silence skipping via
         no_speech_thold. decode_window(mel, language, task,
         suppress_non_speech, ...) -> dict lets the window batcher route each
-        window through its shared batch."""
-        if params.word_timestamps:
-            raise _not_ported("word_timestamps", "stream")
+        window through its shared batch. With params.word_timestamps each
+        decoded window's segments carry their words (`_attach_words`)."""
         audio = np.asarray(audio, np.float32).reshape(-1)
         if audio.size == 0:
             return TranscribeResult(segments=[], full_text="")
@@ -547,6 +545,8 @@ class WhisperEngine(AsrEngine):
             for s in segs:
                 s["end"] = min(s["end"], offset + window_dur)
                 s["start"] = min(s["start"], s["end"])
+            if params.word_timestamps and segs:
+                self._attach_words(segs, res, mel, language, offset, window_dur)
             raw_segments.extend(segs)
             if advance is not None and advance > 0.5:
                 seek += int(advance * SAMPLE_RATE)
@@ -556,7 +556,55 @@ class WhisperEngine(AsrEngine):
 
     def transcribe_audio_vad(self, audio: np.ndarray, params: AsrParams,
                              decode_window=None) -> TranscribeResult:
-        raise _not_ported("transcribe_audio_vad", "stream")
+        """VAD-segmented long-form transcription: the energy VAD
+        (`audio/vad.py::speech_segments`) finds the speech spans, only
+        those reach the encoder through `transcribe_audio`, and segment and
+        word times are shifted by each span's offset. After the first span
+        its detected language holds for the rest of the file."""
+        audio = np.asarray(audio, np.float32).reshape(-1)
+        spans = speech_segments(audio)
+        if not spans:
+            return TranscribeResult(segments=[], full_text="", language=params.language)
+        all_segments: list[TranscribeSegment] = []
+        language = params.language
+        full_text = []
+        n_tokens = 0
+        for start, end in spans:
+            if language and params.language is None:
+                params = dataclasses.replace(params, language=language)
+            res = self.transcribe_audio(audio[start:end], params, decode_window)
+            language = language or res.language
+            offset = start / SAMPLE_RATE
+            for s in res.segments:
+                s.start += offset
+                s.end += offset
+                for w in s.words or ():
+                    w["start"] += offset
+                    w["end"] += offset
+                all_segments.append(s)
+            full_text.append(res.full_text)
+            n_tokens += res.n_tokens
+        return TranscribeResult(segments=all_segments, full_text="".join(full_text),
+                                language=language, n_tokens=n_tokens)
+
+    def _attach_words(self, segs: list[dict], res: dict, mel: torch.Tensor,
+                      language: str | None, offset: float, window_dur: float) -> None:
+        """Word-level timestamps by cross-attention DTW (`models/align.py`)
+        for one decoded window: its mel is encoded again (the decode hook
+        returns no encoder states, as in the reference), and each word goes
+        to the segments whose span, widened by 0.02 s, holds its start.
+
+        Each segment gets its own copy of a word: `transcribe_audio_vad`
+        shifts the words segment by segment, and the JAX engine, which
+        shares one dict between the segments that hold a word, shifts such
+        a word once for each of them (a fault of the reference)."""
+        enc = W.encode(self.model, mel)
+        tokens = [int(t) for t in res["tokens"][: res["n_sampled"]]]
+        words = A.word_timestamps(self.model, self.tokenizer, tokens, enc, language=language,
+                                  audio_seconds=window_dur, time_offset=offset)
+        for s in segs:
+            s["words"] = [dict(w) for w in words
+                          if s["start"] - 0.02 <= w["start"] < s["end"] + 0.02]
 
     def _postprocess(self, raw_segments: list[dict], params: AsrParams,
                      language: str | None, n_tokens: int = 0) -> TranscribeResult:

@@ -1,12 +1,11 @@
 """Audio file input: the port's own copy of the file half of
 `speaksense_tpu/audio/io.py` (`read_wav`, `write_wav`, `ensure_wav_format`,
-`load_audio` and their errors), with the same names and behaviour.
+`load_audio`, the streaming parser `parse_audio_file_stream` and their
+errors), with the same names and behaviour.
 
 WAV is read and written with the standard library's `wave` module and
 numpy; any other format is converted by spawning `ffmpeg -acodec pcm_s16le
--ar 44100`, as the reference does (codecs are not reimplemented). The
-streaming file parser of the JAX module is not ported: nothing on the
-port's paths calls it.
+-ar 44100`, as the reference does (codecs are not reimplemented).
 """
 
 from __future__ import annotations
@@ -16,11 +15,13 @@ import shutil
 import subprocess
 import wave
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
-from speaksense_tpu_torch.audio.dsp import convert_to_mono
-from speaksense_tpu_torch.audio.resample import resample
+from speaksense_tpu_torch.audio.dsp import DenoiseConfig, convert_to_mono
+from speaksense_tpu_torch.audio.resample import ChunkResampler, resample
+from speaksense_tpu_torch.audio.stream import StreamAudioProcessor
 
 log = logging.getLogger(__name__)
 
@@ -108,6 +109,47 @@ def load_audio(path: str | Path, target_rate: int = TARGET_RATE) -> np.ndarray:
         x, channels, rate = read_wav(wav_path)
         mono = convert_to_mono(x, channels)
         return resample(mono, rate, target_rate)
+    finally:
+        if wav_path != path:
+            wav_path.unlink(missing_ok=True)
+
+
+def parse_audio_file_stream(
+    path: str | Path,
+    config: DenoiseConfig | None = None,
+    callback: Callable[[np.ndarray], None] | None = None,
+    chunk_size: int = 4096,
+) -> None:
+    """Streaming parse: read `chunk_size` samples at a time, downmix,
+    resample to 16 kHz, run the stream DSP, and invoke `callback` with each
+    processed frame (the reference's audio/mod.rs streaming parser)."""
+    config = config or DenoiseConfig()
+    path = Path(path)
+    wav_path = ensure_wav_format(path)
+    try:
+        with wave.open(str(wav_path), "rb") as w:
+            channels = w.getnchannels()
+            rate = w.getframerate()
+            width = w.getsampwidth()
+            if width != 2:
+                raise UnsupportedFormatError("streaming parser expects 16-bit PCM")
+            resampler = ChunkResampler(rate, TARGET_RATE) if rate != TARGET_RATE else None
+            processor = StreamAudioProcessor(config, callback or (lambda _: None))
+            frames_per_chunk = max(1, chunk_size // max(channels, 1))
+            while True:
+                raw = w.readframes(frames_per_chunk)
+                if not raw:
+                    break
+                x = np.frombuffer(raw, "<i2").astype(np.float32) / 32768.0
+                mono = convert_to_mono(x, channels)
+                if resampler is not None:
+                    mono = resampler.process(mono)
+                processor.process_chunk(mono)
+            if resampler is not None:
+                tail = resampler.finish()
+                if tail.size:
+                    processor.process_chunk(tail)
+            processor.finish()
     finally:
         if wav_path != path:
             wav_path.unlink(missing_ok=True)

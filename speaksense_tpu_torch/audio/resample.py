@@ -1,5 +1,5 @@
 """Sample-rate conversion to whisper's 16 kHz: the counterpart of
-`speaksense_tpu/audio/resample.py::resample`.
+`speaksense_tpu/audio/resample.py` (`resample` and `ChunkResampler`).
 
 The JAX package calls scipy's polyphase `resample_poly`; the port computes
 the same polyphase filter in numpy, so it needs no scipy: a Kaiser-windowed
@@ -60,3 +60,61 @@ def resample(x: np.ndarray, from_rate: int, to_rate: int) -> np.ndarray:
         out[k0:k0 + t.size] = (np.where(valid, xd[np.clip(src, 0, n_in - 1)], 0.0)
                                * taps).sum(axis=1)
     return out
+
+
+class ChunkResampler:
+    """Stateful streaming resampler, boundary-exact with the whole-signal
+    `resample` (the JAX `ChunkResampler`, with the same names and
+    behaviour; the reference's SincFixedIn is likewise stateful across
+    calls).
+
+    Outputs are only finalized once `context` samples of lookahead exist,
+    and the retained buffer always starts on a multiple of the polyphase
+    decimation factor, so every call's output grid aligns with the global
+    one: finalized outputs equal a one-shot resample except for the
+    filter's start-up at the stream's edges.
+    """
+
+    def __init__(self, from_rate: int, to_rate: int, context: int = 512):
+        g = math.gcd(from_rate, to_rate)
+        self.from_rate = from_rate
+        self.to_rate = to_rate
+        self.up = to_rate // g
+        self.down = from_rate // g
+        # align context up to a whole number of decimation blocks
+        self.context = ((context + self.down - 1) // self.down) * self.down
+        self._buf = np.zeros((0,), np.float32)
+        self._in_start = 0        # global index of _buf[0]; always % down == 0
+        self._emitted = 0         # global output samples emitted
+
+    def _out_of_in(self, global_in: int) -> int:
+        return global_in * self.up // self.down
+
+    def process(self, chunk: np.ndarray) -> np.ndarray:
+        chunk = np.asarray(chunk, np.float32)
+        if self.from_rate == self.to_rate:
+            return chunk
+        self._buf = np.concatenate([self._buf, chunk])
+        fin = ((self._buf.size - self.context) // self.down) * self.down
+        if fin <= 0:
+            return np.zeros((0,), np.float32)
+        res = resample(self._buf, self.from_rate, self.to_rate)
+        lo = self._emitted - self._out_of_in(self._in_start)
+        hi = self._out_of_in(self._in_start + fin) - self._out_of_in(self._in_start)
+        out = res[lo:hi]
+        self._emitted += out.size
+        drop = max(0, fin - self.context)
+        self._buf = self._buf[drop:]
+        self._in_start += drop
+        return out
+
+    def finish(self) -> np.ndarray:
+        """Flush the outputs held back for lookahead."""
+        if self.from_rate == self.to_rate or self._buf.size == 0:
+            return np.zeros((0,), np.float32)
+        res = resample(self._buf, self.from_rate, self.to_rate)
+        lo = self._emitted - self._out_of_in(self._in_start)
+        out = res[lo:]
+        self._emitted += out.size
+        self._buf = np.zeros((0,), np.float32)
+        return out

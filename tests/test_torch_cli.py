@@ -1,7 +1,8 @@
 """The port's CLI (`python -m speaksense_tpu_torch.cli`) against the JAX
 package's on one tiny ggml checkpoint and one WAV file, in process on the
-CPU: the same transcript JSON, the same detected language, the same
-`inspect-ggml` listing."""
+CPU: the same transcript JSON (with and without word timestamps), the same
+detected language, the same `inspect-ggml` listing, and the same output of
+the host-DSP subcommands (`quality`, `voiceprint`, `emotion`, `denoise`)."""
 
 import dataclasses
 import functools
@@ -97,11 +98,65 @@ def test_inspect_ggml_lists_the_same_tensors(files, capsys):
     assert "encoder.blocks.1.attn.query.weight: (64, 64)" in got
 
 
-def test_not_ported_options_refuse(files):
-    """--word-timestamps names its ROADMAP item; a missing checkpoint
-    raises instead of falling back to random weights."""
+def test_not_ported_options_refuse(files, capsys):
+    """--word-timestamps, once refused, now gives the JAX CLI's JSON with
+    each segment's words (f32 compute on both sides); a missing checkpoint
+    still raises instead of falling back to random weights."""
     ckpt, wav = files
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCLI.main(["transcribe", wav, "--model", ckpt, "--word-timestamps", "--device", "cpu"])
+    out = []
+    for main, extra in ((JCLI.main, []), (TCLI.main, ["--device", "cpu"])):
+        main(["transcribe", wav, "--model", ckpt, "--json", "--fp32", "--word-timestamps",
+              *extra])
+        out.append(json.loads(capsys.readouterr().out))
+    want, got = out
+    assert got == want
+    assert got["segments"] and all("words" in s for s in got["segments"])
+    assert any(s["words"] for s in got["segments"])
+    # the text listing: a line per word under its segment, as the JAX CLI
+    # prints it
+    TCLI.main(["transcribe", wav, "--model", ckpt, "--fp32", "--word-timestamps",
+               "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    want_lines = []
+    for seg in want["segments"]:
+        want_lines.append(f"[{seg['start']:8.2f} --> {seg['end']:8.2f}]  {seg['text']}")
+        want_lines += [f"    [{w['start']:7.2f} --> {w['end']:7.2f}] {w['word']}"
+                       for w in seg["words"]]
+    assert lines[:len(want_lines)] == want_lines
     with pytest.raises(FileNotFoundError):
         TCLI.main(["transcribe", wav, "--model", "missing.bin", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["quality"], ["voiceprint"], ["emotion"],
+                                  ["voiceprint", "--compare-with", "other"],
+                                  ["voiceprint", "--compare-with", "other", "--threshold", "0.99"],
+                                  ["denoise", "--output", "clean.wav"]],
+                         ids=["quality", "voiceprint", "emotion", "compare", "threshold",
+                              "denoise"])
+def test_host_dsp_subcommands_match_jax_cli(files, tmp_path, capsys, argv):
+    """Each host-DSP subcommand prints what the JAX CLI prints on the same
+    WAV (denoise: the same output file, byte for byte)."""
+    _, wav = files
+    other = tmp_path / "other.wav"
+    rng = np.random.default_rng(3)
+    t = np.arange(16000 * 3) / 16000
+    write_wav(other, 0.3 * np.sin(2 * np.pi * 230 * t) + 0.01 * rng.standard_normal(t.size))
+    argv = [str(other) if a == "other" else a for a in argv]
+    out = []
+    for i, main in enumerate((JCLI.main, TCLI.main)):
+        args = [argv[0], wav, *argv[1:]]
+        if argv[0] == "denoise":
+            args[-1] = str(tmp_path / f"clean{i}.wav")
+        main(args)
+        out.append(capsys.readouterr().out)
+    want, got = out
+    if argv[0] == "denoise":
+        assert got.strip() == str(tmp_path / "clean1.wav")
+        assert ((tmp_path / "clean1.wav").read_bytes() == (tmp_path / "clean0.wav").read_bytes())
+    else:
+        assert got == want
+        json.loads(got)
+    if "--compare-with" in argv:
+        res = json.loads(got)
+        assert res["threshold"] == (0.99 if "--threshold" in argv else 0.75)
+        assert res["match"] is (res["similarity"] >= res["threshold"])

@@ -1,8 +1,9 @@
 """The port's window-transcription slice as a whole, against the JAX package
 on shared tiny weights (both in float32 on the CPU): the window batcher's
-`transcribe`, language detection, the temperature-fallback ladder, the REST
-task processor driving the port, and the port's import boundary (no jax and
-nothing of the JAX package)."""
+`transcribe`, language detection, the temperature-fallback ladder, word
+timestamps and VAD segmentation, the REST task processor driving the port
+(with VAD segmentation and emotion labels), and the port's import boundary
+(no jax and nothing of the JAX package)."""
 
 import os
 import subprocess
@@ -152,10 +153,18 @@ def test_empty_audio_and_not_ported_options(engines, speech, np_params):
     want = jeng.transcribe_with_state(jeng.create_state(), chunk, params)
     _compare(want, got)
     assert got.n_tokens > 0 and len(got.segments) <= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.transcribe(np.zeros(16000, np.float32), AsrParams(word_timestamps=True))
+    # word timestamps now run (held against JAX in
+    # test_word_timestamps_match_jax): the same chunk as a long-form call
+    # gives the segments it gives without them, each with its list of words
+    # (empty here: the synthetic vocab makes the window one word, which
+    # starts at the path's first frame, before the first segment)
+    plain = teng.transcribe(chunk, AsrParams(language="en"))
+    got = teng.transcribe(chunk, AsrParams(language="en", word_timestamps=True))
+    assert got.segments and all(s.words is not None for s in got.segments)
+    assert [(s.text, s.start, s.end) for s in got.segments] == [
+        (s.text, s.start, s.end) for s in plain.segments]
     # beam search and the int8 options now run (held against JAX in
-    # test_torch_beam*.py and test_torch_int8.py); word timestamps still raise
+    # test_torch_beam*.py and test_torch_int8.py)
     mel = np.zeros((1, 3000, 80), np.float32)
     beam = teng.decode_windows(mel, "en", beam_size=4, max_new_tokens=4)[0]
     assert beam["temperature"] == 0.0 and beam["n_sampled"] <= 4
@@ -214,6 +223,124 @@ def test_rest_task_processor_runs_on_the_port(engines, speech, tmp_path):
         storage.close()
 
 
+# a vocab whose pieces start with a space, so that each text token is a
+# word (the synthetic vocab has none: one word per window); the
+# special-token layout is the synthetic one's, so decoding is unchanged
+VOCAB = [b" w%d" % i for i in range(50257)]
+VOCAB += [b""] * (DIMS.n_vocab - len(VOCAB))
+
+
+@pytest.fixture()
+def spaced(engines, monkeypatch):
+    jeng, teng = engines
+    monkeypatch.setattr(jeng, "tokenizer", JTokenizer.from_vocab(VOCAB))
+    monkeypatch.setattr(teng, "tokenizer", Tokenizer.from_vocab(VOCAB))
+    return jeng, teng
+
+
+@pytest.fixture(scope="module")
+def gapped(speech):
+    """Speech, 3 s of silence, speech: two VAD spans of one window each."""
+    return np.concatenate([speech[:16000 * 8], np.zeros(16000 * 3, np.float32),
+                           speech[16000 * 20:16000 * 26]])
+
+
+def _words_copied(jeng, monkeypatch):
+    """Give each segment of the JAX engine its own copy of its words, as the
+    port's `_attach_words` does. Unpatched, the JAX engine shares one dict
+    between the segments that hold a word, and `transcribe_audio_vad` then
+    shifts that word once per segment (a fault of the reference)."""
+    real = jeng._attach_words
+
+    def copying(segs, *args, **kwargs):
+        real(segs, *args, **kwargs)
+        for s in segs:
+            s["words"] = [dict(w) for w in s["words"]]
+
+    monkeypatch.setattr(jeng, "_attach_words", copying)
+
+
+@pytest.mark.parametrize("entry", ["transcribe", "transcribe_audio_vad"])
+def test_word_timestamps_match_jax(spaced, gapped, entry, monkeypatch):
+    """Long-form transcription with word timestamps, and VAD-segmented
+    (the language detected on the first span and kept for the second):
+    the JAX engine's segments, texts and word times, exactly, once the
+    reference shifts each word once (`_words_copied`)."""
+    from speaksense_tpu_torch.audio.vad import speech_segments
+
+    jeng, teng = spaced
+    params = AsrParams(language="en" if entry == "transcribe" else None,
+                       word_timestamps=True)
+    got = getattr(teng, entry)(gapped, params)
+    if entry == "transcribe_audio_vad":
+        # the reference's fault shows here: a word shared by segments of
+        # the second span is shifted by that span's offset more than once
+        faulty = jeng.transcribe_audio_vad(gapped, params)
+        assert max(w["end"] for s in faulty.segments for w in s.words) > gapped.size / 16000
+    _words_copied(jeng, monkeypatch)
+    want = getattr(jeng, entry)(gapped, params)
+    _compare(want, got)
+    assert all(s.words is not None for s in got.segments)
+    words = [w for s in got.segments for w in s.words]
+    assert len(words) >= 4
+    assert all(0.0 <= w["start"] <= w["end"] <= gapped.size / 16000 for w in words)
+    if entry == "transcribe_audio_vad":
+        spans = [(a / 16000, b / 16000) for a, b in speech_segments(gapped)]
+        assert len(spans) == 2
+        for s in got.segments:
+            lo, hi = next(span for span in spans if span[0] <= s.start <= span[1])
+            assert all(lo <= w["start"] <= w["end"] <= hi + 1e-6 for w in s.words)
+        assert {s.start < spans[1][0] for s in got.segments} == {True, False}
+        silence = np.zeros(16000 * 2, np.float32)
+        empty = teng.transcribe_audio_vad(silence, AsrParams(language="de"))
+        assert (empty.segments, empty.full_text, empty.language) == ([], "", "de")
+
+
+def test_rest_task_processor_vad_and_emotion_match_jax(engines, gapped, tmp_path):
+    """The shared TranscribeProcessor with VAD segmentation and emotion
+    labels: the JAX engine and the port's window batcher give the same
+    stored task result (texts, times, emotion labels, token count)."""
+    from speaksense_tpu.audio.io import write_wav
+    from speaksense_tpu.schedule import (
+        CallbackType, PathType, TaskConfig, TaskManager, TaskParams, TaskStatus, TaskType,
+        TranscribeParams,
+    )
+    from speaksense_tpu.schedule.processors import TranscribeProcessor
+    from speaksense_tpu.storage.sqlite import SqliteTaskStorage
+
+    jeng, teng = engines
+    path = tmp_path / "in.wav"
+    write_wav(path, gapped)
+    tb = TBatched(teng, max_batch=2, max_wait_ms=1.0)
+    results = []
+    try:
+        for i, eng in enumerate((jeng, tb)):
+            storage = SqliteTaskStorage(tmp_path / f"tasks{i}.db")
+            try:
+                manager = TaskManager(storage)
+                manager.register_processor(TranscribeProcessor(
+                    eng, audio_dir=str(tmp_path), vad_segmentation=True))
+                task = manager.create_task(TaskConfig(
+                    task_type=TaskType.TRANSCRIBE, input_path=str(path),
+                    path_type=PathType.LOCAL, callback_type=CallbackType.none(),
+                    params=TaskParams.transcribe(TranscribeParams(
+                        language="en", emotion_recognition=True))))
+                claimed = manager.get_next_task()
+                manager.complete_task(claimed, manager.process_task(claimed))
+                stored = manager.get_task(task.id)
+                assert stored.status.kind == TaskStatus.COMPLETED
+                results.append(stored.result.result)
+            finally:
+                storage.close()
+    finally:
+        tb.stop()
+    want, got = results
+    assert tb.windows_run == 2
+    assert got.text == want.text and got.n_tokens == want.n_tokens > 0
+    assert [s.__dict__ for s in got.segments] == [s.__dict__ for s in want.segments]
+    assert any(s.emotion for s in got.segments)
+
+
 def test_build_engine_composes_a_batched_random_engine():
     config = Config()
     # bf16 on the CPU is slow: a short token budget and no fallback retries
@@ -255,7 +382,12 @@ assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
         "speaksense_tpu_torch.ckpt.cache", "speaksense_tpu_torch.ckpt.hf_dir",
         "speaksense_tpu_torch.serving.stream", "speaksense_tpu_torch.models.beam",
         "speaksense_tpu_torch.runtime.beam_slots",
-        "speaksense_tpu_torch.tools.microbench_encattn"} <= set(names), names
+        "speaksense_tpu_torch.tools.microbench_encattn", "speaksense_tpu_torch.models.align",
+        "speaksense_tpu_torch.audio.vad", "speaksense_tpu_torch.audio.quality",
+        "speaksense_tpu_torch.audio.emotion", "speaksense_tpu_torch.audio.voiceprint",
+        "speaksense_tpu_torch.audio.stream"} <= set(names), names
+
+from speaksense_tpu_torch.asr import AsrParams
 
 from speaksense_tpu_torch.config import Config, EngineConfig
 from speaksense_tpu_torch.main import build_engine
@@ -264,7 +396,7 @@ from speaksense_tpu_torch.serving.stream import StreamSession
 config = Config(model_path=sys.argv[1])
 config.engine = EngineConfig(compute_dtype="float32", logprob_thold=-1e9,
                              entropy_thold=-1.0, compression_ratio_thold=1e9,
-                             weight_cache_dir=sys.argv[2])
+                             max_decode_len=16, weight_cache_dir=sys.argv[2])
 eng = build_engine(config, device="cpu", slot_serving=True, slots=2, slot_tokens=4)
 try:
     assert eng.engine.name == sys.argv[1] and eng.engine.dims.n_audio_state == 128
@@ -277,6 +409,11 @@ try:
         session.settle(p)
     events = session.finish()
     assert events[-1].end == 1, events
+    # VAD segmentation and word timestamps through the window batcher
+    gapped = np.concatenate([pcm[:16000 * 2], np.zeros(16000 * 2, np.int16),
+                             pcm[16000 * 2:16000 * 3]]).astype(np.float32) / 32768
+    res = eng.transcribe_audio_vad(gapped, AsrParams(language="en", word_timestamps=True))
+    assert res.segments and all(s.words is not None for s in res.segments), res
     assert eng.engine._slot_server.pool.admit_rows == 2
     # the same session through a beam pool with int8 self pages
     eng.engine.disable_slot_serving()
@@ -303,12 +440,13 @@ print("ok")
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port imports, the beam search and beam pool
-    modules included, and a ggml checkpoint loads through
-    `build_engine(config)` and serves a pooled StreamSession with device
-    denoise end to end (ingest, settle, finish), through the greedy pool and
-    then a beam pool, without importing jax or anything of the JAX package,
-    by name or by file."""
+    """Every module of the port imports, the beam search, beam pool,
+    alignment and host-DSP modules included, and a ggml checkpoint loads
+    through `build_engine(config)` and serves a pooled StreamSession with
+    device denoise end to end (ingest, settle, finish), a VAD-segmented
+    call with word timestamps, then the session through a beam pool,
+    without importing jax or anything of the JAX package, by name or by
+    file."""
     ckpt = tmp_path / "tiny.bin"
     _write_tiny_ggml(ckpt)
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
