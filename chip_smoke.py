@@ -3,11 +3,11 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, beam, ckpt
+    python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, serve, beam, ckpt
 
 It first compiles the hand-written CUDA kernels from the sources in the
-tree, then runs its phases; main, stream, grad and words share one set of
-large-v3-width random weights:
+tree, then runs its phases; main, stream, grad, words and serve share one
+set of large-v3-width random weights:
   kernel  hold each kernel against its plain PyTorch version on the card at
           the shapes of the main paths (30 s windows and 5 s slot
           admissions), time both and the one PyTorch call that computes the
@@ -49,6 +49,19 @@ large-v3-width random weights:
           against the numpy one on 32 heads, then parse a 44.1 kHz stereo
           WAV as a stream and run the CLI's quality, voiceprint, emotion and
           denoise;
+  serve   the REST task path of a server built by `main.build_context`
+          (SQLite stores, API-key auth, the task manager, 2 Transcribe
+          workers over the window batcher, a loopback HTTP server for URL
+          inputs and callbacks), the ladder neutralized: a 30 s task by URL
+          with a callback, the same audio by local path with emotion labels
+          and the dirty-word filter, a URL that answers 404 (retried, then
+          failed), a 10 s noise reduction; checks the terminal states,
+          results, callbacks, the key's usage and the forward kernel's
+          launches, and prints each task's latency from queued to terminal.
+          The REST and gRPC front doors themselves (aiohttp, grpc.aio) are
+          not driven here: the GPU image has no aiohttp, grpcio or protobuf;
+          the CPU tests hold them against the JAX servers, and the script
+          checks that none of those packages (nor requests) was imported;
   beam    on an engine with beam_size 5 (BASELINE config 4: 64 streams,
           beam = 5): 2 concurrent 30 s requests through the window beam
           search, 64 session threads through the 64-slot K = 5 beam pool
@@ -1621,6 +1634,213 @@ def _host_dsp(card: str) -> None:
           f"four processes together, {cli_s:.1f} s [{card}]")
 
 
+SERVE_DEADLINE_S = 50.0
+# modules of the front doors: the GPU image has none of them, and the task
+# path must not need them
+SERVER_PACKAGES = ("aiohttp", "grpc", "google.protobuf", "requests")
+
+
+def _loaded(roots) -> list:
+    """The loaded modules under any of `roots`, sorted."""
+    return sorted(m for m in sys.modules
+                  if any(m == r or m.startswith(r + ".") for r in roots))
+
+
+class _Loopback:
+    """A loopback HTTP server over a directory: GET serves its files (404
+    for any other path), POST records the JSON body by path (the HTTP
+    callbacks of the tasks)."""
+
+    def __init__(self, root: Path):
+        import http.server
+
+        self.posts: dict[str, list] = {}
+        posts = self.posts
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                path = root / self.path.lstrip("/")
+                body = path.read_bytes() if path.is_file() else None
+                self.send_response(200 if body is not None else 404)
+                self.end_headers()
+                self.wfile.write(body or b"not found")
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                posts.setdefault(self.path, []).append(body)
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(5)
+
+
+def phase_serve(card: str, engine) -> int:
+    """Drive the REST task path on the shared engine as a server built by
+    `main.build_context` serves it: the SQLite stores, auth, the task
+    manager and 2 Transcribe workers (with the noise-reduction and voiceprint
+    workers) over the window batcher, inputs downloaded and callbacks posted
+    over a loopback HTTP server. Four tasks, made as the REST routes make
+    them: (a) 30 s by URL with a callback, (b) the same audio by local path
+    with emotion labels and the dirty-word filter, (c) a URL that answers
+    404 (retried, then failed, its callback carrying the error), (d) noise
+    reduction of a 10 s WAV (`/schedule/tasks` JSON). The ladder is
+    neutralized (random weights would climb all of it). Checks the terminal
+    states, results, callbacks, the key's usage, the stats and the forward
+    kernel's launches (32 per encode). Returns those launches."""
+    import numpy as np
+
+    from speaksense_tpu_torch.audio.dsp import DenoiseConfig, denoise_audio
+    from speaksense_tpu_torch.audio.emotion import LABELS
+    from speaksense_tpu_torch.audio.io import load_audio, write_wav
+    from speaksense_tpu_torch.auth import Permission, RateLimit
+    from speaksense_tpu_torch.config import Config
+    from speaksense_tpu_torch.main import build_context
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.schedule.types import (
+        CallbackType, PathType, TaskConfig, TaskParams, TaskPriority, TaskType,
+        TranscribeParams,
+    )
+
+    t_phase = time.perf_counter()
+    inner = engine.engine
+    tmp = Path(tempfile.mkdtemp(prefix="serve-"))
+    speech = _speech(30.0, seed=900)
+    write_wav(tmp / "speech.wav", speech)
+    write_wav(tmp / "noisy.wav", speech[:16000 * 10]
+              + 0.05 * np.random.default_rng(901).standard_normal(16000 * 10).astype(np.float32))
+    files = tmp / "files"
+    files.mkdir()
+    shutil.copy(tmp / "speech.wav", files / "speech.wav")
+    web = _Loopback(files)
+    config = Config(sqlite_path=f"sqlite://{tmp}/storage.db", audio_path=str(tmp / "audio"))
+    config.task_workers = 2
+    base_cfg = inner.config
+    inner.config = dataclasses.replace(base_cfg, **NEUTRAL)
+    windows0 = engine.windows_run
+    n_encode, restore = _count_encodes(W)
+    F.flash_attention_full.launches = 0
+    ctx = scheduler = None
+    try:
+        ctx, scheduler = build_context(config, engine)
+        manager, auth = ctx.task_manager, ctx.auth
+        # a key as POST /auth/api-keys makes it
+        key = auth.create_api_key("smoke", [Permission(p) for p in ["Transcribe"]],
+                                  RateLimit.from_json({"requests_per_minute": 60}),
+                                  None).key
+
+        def rest_transcribe(req: dict):
+            """POST /asr/transcribe's verify and TaskConfig (rest.py)."""
+            auth.verify_api_key(f"Bearer {key}", Permission.TRANSCRIBE)
+            return manager.create_task(TaskConfig(
+                task_type=TaskType.TRANSCRIBE, input_path=req["path"],
+                path_type=PathType(req.get("path_type", "Url")),
+                callback_type=CallbackType.http(req["callback_url"]),
+                params=TaskParams.transcribe(TranscribeParams(
+                    language=req.get("language"),
+                    emotion_recognition=bool(req.get("emotion_recognition", False)),
+                    filter_dirty_words=bool(req.get("filter_dirty_words", False)))),
+                priority=TaskPriority.NORMAL, retry_count=0, max_retries=3, timeout=None,
+                api_key=key)).id
+
+        ids = {
+            "a": rest_transcribe({"path": f"{web.url}/speech.wav", "language": "en",
+                                  "callback_url": f"{web.url}/cb/a"}),
+            "b": rest_transcribe({"path": str(tmp / "speech.wav"), "path_type": "Local",
+                                  "language": "en", "emotion_recognition": True,
+                                  "filter_dirty_words": True,
+                                  "callback_url": f"{web.url}/cb/b"}),
+            "c": rest_transcribe({"path": f"{web.url}/missing.wav", "language": "en",
+                                  "callback_url": f"{web.url}/cb/c"}),
+            # POST /schedule/tasks: the TaskConfig JSON, api_key dropped
+            "d": manager.create_task(TaskConfig.from_json({
+                "task_type": "NoiseReduction", "input_path": str(tmp / "noisy.wav"),
+                "path_type": "Local", "params": {"type": "NoiseReduction", "params": {}},
+                "callback_type": {"type": "Http", "config": {"url": f"{web.url}/cb/d"}}})).id,
+        }
+        want = {"a": "Completed", "b": "Completed", "c": "Failed", "d": "Completed"}
+        deadline = t_phase + SERVE_DEADLINE_S
+        while True:
+            tasks = {k: manager.get_task(v) for k, v in ids.items()}
+            terminal = {k: t.status.kind for k, t in tasks.items()
+                        if t.status.kind in ("Completed", "Failed", "TimedOut")}
+            if len(terminal) == len(ids) and all(web.posts.get(f"/cb/{k}") for k in ids):
+                break
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"serve: tasks not terminal or callbacks missing after "
+                                   f"{SERVE_DEADLINE_S} s: {terminal}, callbacks "
+                                   f"{sorted(web.posts)}")
+            time.sleep(0.05)
+        stats = dict(manager.get_task_stats())
+        usage = auth.get_key_stats(key)
+    finally:
+        launches = F.flash_attention_full.launches
+        restore()
+        inner.config = base_cfg
+        if scheduler is not None:
+            scheduler.stop()
+        if ctx is not None:
+            ctx.task_manager.storage.close()
+            ctx.auth.key_storage.close()
+        web.close()
+    windows = engine.windows_run - windows0
+
+    assert terminal == want, terminal
+    for k in ("a", "b"):
+        r = tasks[k].result.result
+        assert r.segments and r.n_tokens > 0 and r.audio_seconds == 30.0, (k, r)
+        assert all(0.0 <= s.start_time <= s.end_time <= 30.0 + 1e-6 for s in r.segments), k
+    # a segment gets its label where it spans audio (its samples lo < hi)
+    voiced = [s for s in tasks["b"].result.result.segments
+              if int(s.end_time * 16000) > int(s.start_time * 16000)]
+    assert voiced and all(s.emotion in LABELS for s in voiced), tasks["b"].result.result
+    assert tasks["a"].result.result.segments[0].emotion is None
+    assert "404" in tasks["c"].error and tasks["c"].config.retry_count == 4, tasks["c"].error
+    out = load_audio(Path(tasks["d"].result.result["output_path"]))
+    # the processor's output against the same DSP called directly, through
+    # the same 16-bit WAV round trip
+    write_wav(tmp / "ref.wav", denoise_audio(load_audio(tmp / "noisy.wav"),
+                                             DenoiseConfig(post_gain=1.0)))
+    ref = load_audio(tmp / "ref.wav")
+    assert out.shape == ref.shape == (16000 * 10,) and np.isfinite(out).all()
+    assert np.array_equal(out, ref), float(np.abs(out - ref).max())
+    for k in ids:
+        posted = web.posts[f"/cb/{k}"]
+        assert len(posted) == 1 and posted[0]["task_id"] == ids[k], (k, posted)
+        assert posted[0]["status"] == tasks[k].status.to_json(), (k, posted)
+    assert web.posts["/cb/c"][0]["data"] == tasks["c"].error
+    assert web.posts["/cb/a"][0]["data"] == tasks["a"].result.to_json()
+    assert usage.total_audio_seconds == 60.0 and usage.total_requests == 3, usage
+    assert usage.total_tokens == sum(tasks[k].result.result.n_tokens for k in ("a", "b"))
+    assert stats == {"Completed": 3, "Failed": 1}, stats
+    assert n_encode[0] >= 1 and launches == inner.dims.n_audio_layer * n_encode[0], (
+        launches, n_encode[0])
+    assert windows >= 2, windows
+    shutil.rmtree(tmp, ignore_errors=True)
+    for k, t in tasks.items():
+        end = t.completed_at or t.updated_at
+        print(f"serve: task {k} ({t.config.task_type}, {t.config.path_type.value}) "
+              f"{t.status.kind} {(end - t.created_at).total_seconds():.3f} s from queued to "
+              f"terminal (host clock) [{card}]")
+    print(f"serve: {windows} windows, {n_encode[0]} encoder calls, {launches} flash kernel "
+          f"launches; the key's usage {usage.total_audio_seconds} s of audio, "
+          f"{usage.total_tokens} tokens, {usage.total_requests} requests; stats {stats}; "
+          f"phase wall {time.perf_counter() - t_phase:.2f} s [{card}]")
+    assert not _loaded(SERVER_PACKAGES), _loaded(SERVER_PACKAGES)
+    return launches
+
+
 def _seeded_ggml_tensors(dims, seed: int):
     """(name, f32 array) of every tensor of a whisper checkpoint of `dims`,
     in whisper.cpp's names, order and (out, in) layout, each drawn from its
@@ -1914,7 +2134,7 @@ _PALLAS_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("kernel", "main", "stream", "grad", "words", "beam", "ckpt")
+    all_phases = ("kernel", "main", "stream", "grad", "words", "serve", "beam", "ckpt")
     ap.add_argument("--phase", choices=all_phases + ("all",), default="all")
     args = ap.parse_args()
     phases = all_phases if args.phase == "all" else (args.phase,)
@@ -1994,7 +2214,7 @@ def main() -> int:
         for name, n in launches.items():
             records[name]["launches"] += n
 
-    if set(phases) & {"main", "stream", "grad", "words"}:
+    if set(phases) & {"main", "stream", "grad", "words", "serve"}:
         config = Config()
         # max_new = max_decode_len // 2 = 48 tokens per window on the window
         # path, where random weights climb the whole ladder; every other
@@ -2021,6 +2241,9 @@ def main() -> int:
             if "words" in phases:
                 count(phase_words(card, engine))
                 lap("words phase")
+            if "serve" in phases:
+                count(phase_serve(card, engine))
+                lap("serve phase")
         finally:
             _stop(engine)
         del engine
@@ -2031,8 +2254,7 @@ def main() -> int:
     if "ckpt" in phases:
         count(phase_ckpt(card))
         lap("ckpt phase")
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "speaksense_tpu"))
+    leaked = _loaded(("jax", "jaxlib", "speaksense_tpu") + SERVER_PACKAGES)
     assert not leaked, leaked
     if args.phase == "all":
         never = [name for name, r in records.items() if not r["launches"]]

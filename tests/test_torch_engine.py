@@ -385,7 +385,15 @@ assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
         "speaksense_tpu_torch.tools.microbench_encattn", "speaksense_tpu_torch.models.align",
         "speaksense_tpu_torch.audio.vad", "speaksense_tpu_torch.audio.quality",
         "speaksense_tpu_torch.audio.emotion", "speaksense_tpu_torch.audio.voiceprint",
-        "speaksense_tpu_torch.audio.stream"} <= set(names), names
+        "speaksense_tpu_torch.audio.stream", "speaksense_tpu_torch.asr.fake",
+        "speaksense_tpu_torch.auth.service", "speaksense_tpu_torch.auth.ratelimit",
+        "speaksense_tpu_torch.storage.sqlite", "speaksense_tpu_torch.schedule.manager",
+        "speaksense_tpu_torch.schedule.scheduler", "speaksense_tpu_torch.schedule.processors",
+        "speaksense_tpu_torch.schedule.callback", "speaksense_tpu_torch.serving.rest",
+        "speaksense_tpu_torch.serving.grpc_server", "speaksense_tpu_torch.serving.pb.asr_pb2",
+        "speaksense_tpu_torch.registry.etcd", "speaksense_tpu_torch.utils.http",
+        "speaksense_tpu_torch.utils.timeutil",
+        "speaksense_tpu_torch.utils.logging"} <= set(names), names
 
 from speaksense_tpu_torch.asr import AsrParams
 
@@ -441,7 +449,8 @@ print("ok")
 
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port imports, the beam search, beam pool,
-    alignment and host-DSP modules included, and a ggml checkpoint loads
+    alignment and host-DSP modules and the serving stack (task queue,
+    stores, auth, REST, gRPC, registry) included, and a ggml checkpoint loads
     through `build_engine(config)` and serves a pooled StreamSession with
     device denoise end to end (ingest, settle, finish), a VAD-segmented
     call with word timestamps, then the session through a beam pool,
