@@ -3,7 +3,8 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, serve, beam, ckpt
+    python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, serve, multi,
+                                            # beam, ckpt
 
 It first compiles the hand-written CUDA kernels from the sources in the
 tree, then runs its phases; main, stream, grad, words and serve share one
@@ -22,7 +23,7 @@ set of large-v3-width random weights:
           beside the back-to-back host figure; then run the tile sweep tool
           (`speaksense_tpu_torch.tools.microbench_encattn`) in process;
   main    answer 2 concurrent transcribe requests through the window
-          batcher of `speaksense_tpu_torch.main.build_engine` (48 new tokens
+          batcher of `speaksense_tpu_torch.main.build_engine` (24 new tokens
           a window), check the results and the kernel launch counts, hold
           the full-depth encoder with the kernel against the plain
           attention, and time the encoder with f32 activations against one
@@ -62,6 +63,17 @@ set of large-v3-width random weights:
           not driven here: the GPU image has no aiohttp, grpcio or protobuf;
           the CPU tests hold them against the JAX servers, and the script
           checks that none of those packages (nor requests) was imported;
+  multi   multi-GPU serving: the engine sharded tp = 2 (two processes,
+          `parallel/`) at large-v3 width and depth on seeded random bf16
+          weights against the unsharded engine on the same weights; over
+          NCCL on two cards through `main`'s wiring, or with one card two
+          ranks sharing it over gloo (the output says which): the encoder
+          states and first-step logits (relative L2, bounds stated), one
+          30 s greedy window and 8 stream chunks through the sharded pool
+          (token agreement printed), the all-reduces of a pool step
+          (`torch.profiler`), and the forward kernel at 10 heads, (8, 10,
+          1500, 64) and (8, 10, 256, 64), against its plain version beside
+          (8, 20, 1500, 64);
   beam    on an engine with beam_size 5 (BASELINE config 4: 64 streams,
           beam = 5): 2 concurrent 30 s requests through the window beam
           search, 64 session threads through the 64-slot K = 5 beam pool
@@ -75,7 +87,15 @@ set of large-v3-width random weights:
           weight cache beside it), load it cold through `build_engine` and
           warm from the cache, hold every parameter against the source
           weights after the same f16 round trip, serve 8 concurrent 30 s
-          windows and 8 stream sessions on it, and run the port's CLI on it.
+          windows and 8 stream sessions on it; run the port's CLI from
+          its weight cache on a file of the same width cut to 4 + 4 layers
+          (the whole ladder on random weights at full depth takes about
+          two minutes on an H100); then write q8_0 and q5_0 files cut to 4 + 4 layers
+          (`--load-layers`, 32 for full depth) and time the cold load of
+          each, and of as many layers of the f16 file, to the parameters
+          through the native dequant and through numpy (one process per
+          route: seconds, the dequant's share, peak host RSS, every
+          parameter equal).
 
 The script imports nothing of jax or of the JAX package, and checks that no
 such module was loaded. Any failure raises and the script exits non-zero.
@@ -490,6 +510,9 @@ def _transcribe_concurrently(engine, audios):
     return results, wall
 
 
+MAIN_DECODE_LEN = 48
+
+
 def phase_main(card: str, engine, n_requests: int = 4) -> int:
     """Drive the port's window path: BatchedEngine.transcribe from
     n_requests threads, as the REST task workers call it."""
@@ -511,6 +534,11 @@ def phase_main(card: str, engine, n_requests: int = 4) -> int:
         return real_decode_windows(mels, *a, **kw)
 
     engine.engine.decode_windows = recording_decode_windows
+    # 24 new tokens a window (max_new = max_decode_len // 2; 48 before PR
+    # 10): random weights climb the whole ladder, whose decodes took most
+    # of the script's time
+    base_config = engine.engine.config
+    engine.engine.config = dataclasses.replace(base_config, max_decode_len=MAIN_DECODE_LEN)
     torch.cuda.reset_peak_memory_stats()
     windows0 = engine.windows_run
     n_encode, restore = _count_encodes(W)
@@ -521,6 +549,7 @@ def phase_main(card: str, engine, n_requests: int = 4) -> int:
         launches = F.flash_attention_full.launches
         restore()
         del engine.engine.decode_windows
+        engine.engine.config = base_config
     peak = torch.cuda.max_memory_allocated()
 
     tokens = sum(r.n_tokens for r in results)
@@ -1841,6 +1870,272 @@ def phase_serve(card: str, engine) -> int:
     return launches
 
 
+# the sharded engine against the unsharded one on the same bf16 weights:
+# every sum over tp is taken in another order than the one product it
+# replaces, and the difference grows through 32 layers (the decoder's
+# activations are bf16). Set from the phase's readings on an H100 (PERF.md):
+# encoder states 1.955e-3, first-step logits 1.435e-2, each bound 3.5-5
+# times that. They are not shown to catch a row-parallel layer that rounds
+# twice; tests/test_torch_parallel.py catches that on the CPU
+MULTI_ENC_RTOL = 1e-2
+MULTI_LOGITS_RTOL = 5e-2
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _agreement(a: dict, b: dict) -> str:
+    """How far two decodes of one input agree: the common prefix of their
+    sampled tokens against their lengths."""
+    n = min(a["n_sampled"], b["n_sampled"])
+    same = next((i for i in range(n) if a["tokens"][i] != b["tokens"][i]), n)
+    return f"{same}/{a['n_sampled']},{b['n_sampled']}"
+
+
+def _allreduce_per_step(pool, n_steps: int) -> dict:
+    """n_steps pool steps on the host clock, then n_steps more under
+    torch.profiler on the leader: the all-reduce count per step and, per
+    step, the host time of each of its events and the device time of the
+    collectives' kernels, beside the step's host time in both runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        pool.step()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(n_steps):
+            pool.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if "allreduce" in e.key.lower().replace("_", "")]
+    host = [e for e in rows if e.device_type != DeviceType.CUDA]
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    return dict(
+        count=max((e.count for e in host), default=0) / n_steps,
+        host_ms={e.key: e.cpu_time_total / 1e3 / n_steps for e in host},
+        device_ms=sum(e.self_device_time_total for e in dev) / 1e3 / n_steps,
+        step_ms=plain_ms, profiled_step_ms=1e3 * wall / n_steps)
+
+
+def _planted_fault(*args, **kwargs):
+    raise RuntimeError("a fault planted on this rank")
+
+
+def _build_with_follower_fault(*args, device):
+    """`main.load_engine` on every rank, with the followers'
+    detect_language raising: the multi phase's last call plants a fault on
+    one rank alone."""
+    import torch
+
+    from speaksense_tpu_torch import main as M
+
+    engine = M.load_engine(*args, device=device)
+    if torch.distributed.get_rank() != 0:
+        engine.detect_language = _planted_fault
+    return engine
+
+
+def phase_multi(card: str) -> dict:
+    """Multi-GPU serving: the engine sharded tp = 2 at large-v3 width and
+    depth on seeded random bf16 weights, against the unsharded engine on
+    the same weights. With two cards or more the ranks are two cards over
+    NCCL, through `main`'s wiring (`worker_spec`, `start_workers`,
+    `join_mesh`); on one card the two ranks share it over gloo (NCCL
+    refuses two ranks on one device). Last, a fault planted on the
+    follower alone must fail the leader's call within seconds and break the
+    mesh. Returns the forward kernel's launches on the leader and its rows
+    at 10 heads."""
+    import numpy as np
+    import torch
+
+    from speaksense_tpu_torch import main as M
+    from speaksense_tpu_torch.config import Config, EngineConfig
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.parallel.mesh import FAULT_GRACE
+    from speaksense_tpu_torch.parallel.workers import (join_mesh, start_workers, stop_workers,
+                                                       watch_workers)
+    from speaksense_tpu_torch.runtime.slots import _StreamJob
+    from speaksense_tpu_torch.tools import microbench_encattn as MB
+
+    config = Config()
+    # greedy windows of 48 new tokens, 96 per pool chunk, the ladder off
+    config.engine = EngineConfig(max_decode_len=96, **NEUTRAL)
+    spec = M.worker_spec(config, 2, 1, device="cuda", model="large-v3", seed=0)
+    spec.build = _build_with_follower_fault
+    if torch.cuda.device_count() >= 2:
+        route = "NCCL: tp = 2 on cuda:0 and cuda:1 through main's wiring"
+    else:
+        spec.devices = ["cuda:0", "cuda:0"]
+        spec.init["backend"] = "gloo"
+        route = ("gloo: two ranks sharing cuda:0 (NCCL refuses two ranks on one device), "
+                 "main's wiring otherwise")
+    print(f"multi: route {route} [{card}]")
+    t0 = time.perf_counter()
+    procs = start_workers(spec)
+    mesh = sharded = plain = None
+    try:
+        mesh = join_mesh(spec, 0)
+        watch_workers(mesh, procs)
+        sharded = M.build_engine(config, model="large-v3", device=mesh.device, seed=0,
+                                 max_wait_ms=50.0, slot_serving=True, slots=8, mesh=mesh)
+        plain = M.build_engine(config, model="large-v3", device="cuda:0", seed=0,
+                               max_wait_ms=50.0, slot_serving=True, slots=8)
+        torch.cuda.synchronize()
+        s_eng, p_eng = sharded.engine, plain.engine
+        assert s_eng.model.n_audio_head == 10 and s_eng.model.n_text_head == 10
+        print(f"multi: mesh {mesh}, a rank's half of the weights and a sharded 8-slot pool, "
+              f"and the unsharded engine, in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the leader [{card}]")
+
+        audio30 = _speech(30.0, seed=300)
+        mels = s_eng.compute_mel(np.stack([audio30, _speech(30.0, seed=301)]), pad_to=3000)
+        chunks = [(np.clip(_speech(5.0, seed=310 + i), -1, 1) * 32767).astype(np.int16)
+                  for i in range(8)]
+        n_encode, restore = _count_encodes(W)
+        F.flash_attention_full.launches = 0
+        try:
+            t = time.perf_counter()
+            enc_s, logits_s = s_eng.first_step(mels)
+            first_s = time.perf_counter() - t
+            t = time.perf_counter()
+            window_s = s_eng.decode_windows(mels[:1], "en", max_new_tokens=48)[0]
+            window_s_t = time.perf_counter() - t
+            steps0 = s_eng._slot_server.pool.step_calls
+            t = time.perf_counter()
+            futs = [s_eng._slot_server.submit_audio(c, language="en") for c in chunks]
+            pooled_s = [f.result(timeout=600) for f in futs]
+            pool_s_t = time.perf_counter() - t
+            pool_steps = s_eng._slot_server.pool.step_calls - steps0
+            torch.cuda.synchronize()
+        finally:
+            launches = F.flash_attention_full.launches
+            encodes = n_encode[0]
+            restore()
+        assert launches == 32 * encodes and encodes >= 3, (launches, encodes)
+        t = time.perf_counter()
+        enc_p, logits_p = p_eng.first_step(mels)
+        first_p = time.perf_counter() - t
+        t = time.perf_counter()
+        window_p = p_eng.decode_windows(mels[:1], "en", max_new_tokens=48)[0]
+        window_p_t = time.perf_counter() - t
+        t = time.perf_counter()
+        futs = [p_eng._slot_server.submit_audio(c, language="en") for c in chunks]
+        pooled_p = [f.result(timeout=600) for f in futs]
+        pool_p_t = time.perf_counter() - t
+
+        for x in (enc_s, logits_s):
+            assert torch.isfinite(x).all().item()
+        assert enc_s.shape == enc_p.shape == (2, 1500, 1280), enc_s.shape
+        assert logits_s.shape == logits_p.shape == (2, 51866), logits_s.shape
+        enc_err, logit_err = _rel_l2(enc_s, enc_p), _rel_l2(logits_s, logits_p)
+        top_same = int((logits_s.argmax(-1) == logits_p.argmax(-1)).sum())
+        print(f"multi: tp = 2 against unsharded on 2 windows of 30 s: encoder states relative "
+              f"L2 {enc_err:.3e} (bound {MULTI_ENC_RTOL}), first-step logits relative L2 "
+              f"{logit_err:.3e} (bound {MULTI_LOGITS_RTOL}), first token the same in "
+              f"{top_same}/2; first step {first_s:.2f} s sharded, {first_p:.2f} s unsharded "
+              f"[{card}]")
+        assert enc_err <= MULTI_ENC_RTOL and logit_err <= MULTI_LOGITS_RTOL, (enc_err, logit_err)
+        assert 0 < window_s["n_sampled"] <= 48 and np.isfinite(window_s["avg_logprob"])
+        print(f"multi: one 30 s greedy window through the sharded window path in "
+              f"{window_s_t:.2f} s ({window_s['n_sampled']} tokens, avg_logprob "
+              f"{window_s['avg_logprob']:.4f}), unsharded {window_p_t:.2f} s "
+              f"({window_p['n_sampled']} tokens, {window_p['avg_logprob']:.4f}); tokens agree "
+              f"{_agreement(window_s, window_p)} (common prefix/lengths) [{card}]")
+        for r in pooled_s:
+            assert 0 < r["n_sampled"] <= 96 and np.isfinite(r["avg_logprob"]), r
+        agree = " ".join(_agreement(a, b) for a, b in zip(pooled_s, pooled_p))
+        print(f"multi: 8 stream chunks of 5 s through the sharded 8-slot pool in {pool_s_t:.2f} s "
+              f"({pool_steps} steps, {sum(r['n_sampled'] for r in pooled_s)} tokens), "
+              f"unsharded {pool_p_t:.2f} s ({sum(r['n_sampled'] for r in pooled_p)} tokens); "
+              f"tokens agree per chunk {agree}; {encodes} encodes on the leader, {launches} "
+              f"flash kernel launches at 10 heads [{card}]")
+
+        # kernel #1 at the shapes a tp = 2 rank gives it, beside 20 heads
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(10)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+        rows = {}
+        for shape in ((8, 10, 1500, 64), (8, 10, 256, 64), (8, 20, 1500, 64)):
+            B, H, T, Dh = shape
+            # the encoder's operands: strided views of one fused projection
+            qkv = rand(B, T, 3 * H * Dh)
+            q, k, v = (qkv[..., i * H * Dh:(i + 1) * H * Dh].view(B, T, H, Dh).transpose(1, 2)
+                       for i in range(3))
+            err = (F.flash_attention_full(q, k, v).float()
+                   - F.flash_attention_ref(q, k, v).float()).abs().max().item()
+            assert err <= FLASH_ATOL, (shape, err)
+            ms = MB.time_ms(lambda: F.flash_attention_full(q, k, v))
+            plain_ms = MB.time_ms(lambda: F.flash_attention_ref(q, k, v))
+            sdpa_ms = MB.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+            busy = _profiled_device_ms(lambda: [F.flash_attention_full(q, k, v) for _ in range(20)])
+            device_ms = None if busy is None else busy / 20
+            bound_ms, bound_by = MB.bound_ms(shape, *MB.FWD_WORK)
+            rows["x".join(map(str, shape))] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   sdpa_ms=sdpa_ms, device_ms=device_ms,
+                                                   bound_ms=bound_ms, bound_by=bound_by)
+            dev_text = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+            print(f"multi: kernel flash_attn_fwd {shape} bf16 (fused-qkv views): max_abs_err "
+                  f"{err:.3e} (bound {FLASH_ATOL}), {ms:.4f} ms, device time {dev_text} "
+                  f"(profiler, 20 launches), plain PyTorch {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), the kernel at {100 * bound_ms / ms:.1f}% of it [{card}]")
+
+        # the pool alone, its server stopped: the collectives of a step
+        sharded.engine.disable_slot_serving()
+        pool = s_eng._new_pool(1, n_slots=8, t_mel=512, max_new=96, max_prompt=16,
+                               int8_kv=False, self_int8=False)
+        prompt = list(s_eng.tokenizer.sot_sequence("en"))
+        pcm = [np.pad(c, (0, 512 * 160 - c.size)) for c in chunks]
+        assert pool.admit_many([_StreamJob(c, prompt, is_audio=True) for c in pcm]) == 8
+        for _ in range(2):
+            pool.step()
+        prof = _allreduce_per_step(pool, 4)
+        s_eng._drop_pool()
+        host = ", ".join(f"{k} {v:.2f} ms" for k, v in prof["host_ms"].items())
+        print(f"multi: a pool step of 8 slots at tp = 2: {prof['count']:.0f} all-reduces per "
+              f"step (host time per step in their events: {host}; device time "
+              f"{prof['device_ms']:.2f} ms; torch.profiler, 4 steps); the step "
+              f"{prof['step_ms']:.2f} ms on the host clock ({prof['profiled_step_ms']:.2f} ms "
+              f"profiled; {route.split(':')[0]}) [{card}]")
+        assert prof["count"] == 3 * 32, prof
+
+        # a fault on the follower alone, its engine and pool stopped first
+        _stop(sharded)
+        sharded = None
+        faults = []
+        for _ in range(2):
+            t = time.perf_counter()
+            try:
+                s_eng.detect_language(audio30)
+            except RuntimeError as e:
+                faults.append((time.perf_counter() - t, str(e)))
+        assert len(faults) == 2 and all("the serving mesh broke" in f for _, f in faults), faults
+        print(f"multi: a fault planted on the follower (its detect_language raises): the "
+              f"leader's call failed in {faults[0][0]:.2f} s ({faults[0][1]}), the next call in "
+              f"{faults[1][0]:.4f} s [{card}]")
+        assert faults[0][0] < FAULT_GRACE.total_seconds() + 10 and faults[1][0] < 1, faults
+    finally:
+        for e in (sharded, plain):
+            if e is not None:
+                _stop(e)
+        stop_workers(mesh, procs)
+    # the follower left its process after its fault
+    assert [p.exitcode for p in procs] == [1], [p.exitcode for p in procs]
+    return {"launches": launches, "tp2_rows": rows}
+
+
 def _seeded_ggml_tensors(dims, seed: int):
     """(name, f32 array) of every tensor of a whisper checkpoint of `dims`,
     in whisper.cpp's names, order and (out, in) layout, each drawn from its
@@ -1978,14 +2273,132 @@ def _free_device() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_ckpt(card: str, seed: int = 0) -> int:
+def _rss_kib() -> int:
+    """This process's resident set in KiB (`/proc/self/statm`)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def _ggml_load_child(path: str, route: str, layers: str) -> None:
+    """In a process of its own: the cold load of the ggml file at `path`,
+    its first `layers` encoder and decoder blocks (`max_layers`), to the
+    parameter pytree (`load_ggml`, then `params_from_ggml`) through the
+    "native" or the "numpy" dequant. Prints one JSON line: the seconds, the
+    dequant's seconds in them, the process's peak host RSS and a digest of
+    every parameter."""
+    import hashlib
+
+    import numpy as np
+
+    from speaksense_tpu_torch.ckpt import ggml as G
+
+    real = G.dequantize
+    spent = [0.0]
+
+    def timed(data, ttype, n, use_native=True):
+        t = time.perf_counter()
+        x = real(data, ttype, n, use_native)
+        spent[0] += time.perf_counter() - t
+        return x
+
+    G.dequantize = timed
+    # the process's resident set sampled every 10 ms: its peak over the
+    # load (ru_maxrss would count the parent's resident set at the fork)
+    peak = [_rss_kib()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], _rss_kib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    model = G.load_ggml(path, max_layers=int(layers), use_native=route == "native")
+    params = G.params_from_ggml(model)
+    seconds = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    peak[0] = max(peak[0], _rss_kib())
+    digest = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                digest[prefix + k] = hashlib.sha1(np.ascontiguousarray(v).data).hexdigest()
+
+    walk(params)
+    print(json.dumps({"seconds": seconds, "dequant_s": spent[0], "peak_rss_gib": peak[0] / 2**20,
+                      "digest": digest}))
+
+
+def _quant_loads(card: str, tmp: Path, f16_path: Path, seed: int, layers: int) -> None:
+    """Write q8_0 and q5_0 files of large-v3 width cut to `layers` encoder
+    and decoder layers from the seeded weights (`write_ggml`), and time the
+    cold load of each and of the f16 file's first `layers` layers in a
+    process of its own through both dequant routes (`_ggml_load_child`):
+    seconds, the dequant's share, peak host RSS, and every parameter equal
+    between the routes."""
+    from speaksense_tpu_torch.audio import mel as MEL
+    from speaksense_tpu_torch.ckpt.ggml import Q5_0, Q8_0, GgmlModel, write_ggml
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.native import native_available
+
+    assert native_available(), "g++ or the native build is missing"
+    dims = dataclasses.replace(W.MODEL_DIMS["large-v3"], n_audio_layer=layers,
+                               n_text_layer=layers)
+    files = [("f16", f16_path)]
+    for name, ftype in (("q8_0", Q8_0), ("q5_0", Q5_0)):
+        path = tmp / f"ggml-large-v3-{layers}l-{name}.bin"
+        t0 = time.perf_counter()
+        write_ggml(GgmlModel(dims=dims, ftype=ftype, filters=MEL.mel_filter_bank(dims.n_mels),
+                             vocab=[b"<%d>" % i for i in range(50257)],
+                             tensors=_SeededTensors(dims, seed)), str(path), ftype=ftype)
+        print(f"ckpt: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB, {name}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        files.append((name, path))
+    for name, path in files:
+        r = {}
+        for route in ("native", "numpy"):
+            out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                                  "chip_smoke._ggml_load_child(*sys.argv[1:])", str(path), route,
+                                  str(layers)],
+                                 cwd=REPO, capture_output=True, text=True, timeout=600)
+            assert out.returncode == 0, out.stderr[-4000:]
+            r[route] = json.loads(out.stdout.strip().splitlines()[-1])
+        nat, ref = r["native"], r["numpy"]
+        assert nat["digest"] == ref["digest"], f"{name}: the native and numpy routes disagree"
+        print(f"ckpt: cold load of the {name} file, {layers} + {layers} layers of large-v3 "
+              f"width, to the parameter pytree (load_ggml, params_from_ggml, one process per "
+              f"route; {len(nat['digest'])} stacked parameter arrays, every one equal between the "
+              f"routes): "
+              f"native dequant {nat['seconds']:.2f} s (dequant "
+              f"{nat['dequant_s']:.2f} s, "
+              f"{100 * nat['dequant_s'] / nat['seconds']:.0f}%; peak host RSS "
+              f"{nat['peak_rss_gib']:.2f} GiB), numpy {ref['seconds']:.2f} s (dequant "
+              f"{ref['dequant_s']:.2f} s, {100 * ref['dequant_s'] / ref['seconds']:.0f}%; peak "
+              f"host RSS {ref['peak_rss_gib']:.2f} GiB) [{card}]")
+
+
+# layers of the checkpoint the ckpt phase's CLI transcribes, and of the
+# quantized-load measurement in a whole run (`--load-layers` sets it)
+CLI_LAYERS = 4
+LOAD_LAYERS = 4
+
+
+def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     """Load a full-width large-v3 f16 ggml checkpoint through the port's
     composition root, cold and warm, check it, serve windows and streams
-    on it, and run the CLI on it."""
+    on it, run the CLI on a checkpoint of that width cut to CLI_LAYERS
+    layers from its weight cache, and time cold loads of f16, q8_0 and q5_0 files cut to
+    load_layers layers through both dequant routes."""
     import numpy as np
     import torch
 
     from speaksense_tpu_torch.audio import mel as MEL
+    from speaksense_tpu_torch.asr.engine import WhisperEngine
     from speaksense_tpu_torch.audio.io import write_wav
     from speaksense_tpu_torch.ckpt import cache as CK
     from speaksense_tpu_torch.ckpt.ggml import F16, GgmlModel, write_ggml
@@ -2101,26 +2514,42 @@ def phase_ckpt(card: str, seed: int = 0) -> int:
         _free_device()
         assert not errors.records, [r.getMessage() for r in errors.records]
 
-        # the port's CLI in its own process, on the card; run from the
-        # temporary directory, its default weight cache is the one above
+        # the port's CLI in its own process, on the card, on a checkpoint
+        # of the same width cut to CLI_LAYERS layers (the whole ladder on
+        # random weights at full depth took 112 s of the CLI's 140 s on an
+        # H100). It is converted here first, into the weight cache that the
+        # CLI, run from the temporary directory, reads by default: the CLI
+        # must find that cache and leave it as it is
+        cut = dataclasses.replace(dims, n_audio_layer=CLI_LAYERS, n_text_layer=CLI_LAYERS)
+        cli_path = tmp / f"ggml-large-v3-{CLI_LAYERS}l.bin"
+        write_ggml(GgmlModel(dims=cut, ftype=F16, filters=MEL.mel_filter_bank(dims.n_mels),
+                             vocab=[b"<%d>" % i for i in range(50257)],
+                             tensors=_SeededTensors(cut, seed)), str(cli_path), ftype=F16)
+        WhisperEngine.from_ggml(str(cli_path), config=config.engine, device="cuda")
+        _free_device()
+        cli_npz = tmp / "asr_data" / "weights_cache" / f"{cli_path.stem}.cache.npz"
+        cli_mtime = cli_npz.stat().st_mtime_ns
         wav = tmp / "speech.wav"
         write_wav(wav, _speech(30.0, seed=200))
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(
             [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-m", "speaksense_tpu_torch.cli", "transcribe",
-                              str(wav), "--model", str(path), "--language", "en", "--json"],
+                              str(wav), "--model", str(cli_path), "--language", "en", "--json"],
                              cwd=tmp, env=env, capture_output=True, text=True, timeout=900)
         cli_s = time.perf_counter() - t0
         assert out.returncode == 0, out.stderr[-4000:]
         result = json.loads(out.stdout)
         assert isinstance(result["segments"], list) and "full_text" in result, result
-        assert npz.stat().st_mtime_ns == npz_mtime, "the CLI converted again: cache missed"
-        print(f"ckpt: python -m speaksense_tpu_torch.cli transcribe (30 s WAV, --json) rc 0 in "
-              f"{cli_s:.1f} s from the weight cache: {len(result['segments'])} segments; "
+        assert cli_npz.stat().st_mtime_ns == cli_mtime, "the CLI converted again: cache missed"
+        print(f"ckpt: python -m speaksense_tpu_torch.cli transcribe (30 s WAV, --json) on a "
+              f"{CLI_LAYERS} + {CLI_LAYERS}-layer large-v3-width file, from the weight cache, "
+              f"rc 0 in {cli_s:.1f} s: {len(result['segments'])} segments; "
               f"{out.stderr.strip().splitlines()[-1]} [{card}]")
+        assert npz.stat().st_mtime_ns == npz_mtime, "the full file's cache was rewritten"
         print(f"ckpt: cold load {times['cold']:.2f} s, warm load {times['warm']:.2f} s; peak host "
               f"RSS {rss_gib():.2f} GiB [{card}]")
+        _quant_loads(card, tmp, path, seed, load_layers)
     finally:
         CK.load_cached = real_load_cached
         logger.removeHandler(errors)
@@ -2134,8 +2563,10 @@ _PALLAS_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("kernel", "main", "stream", "grad", "words", "serve", "beam", "ckpt")
+    all_phases = ("kernel", "main", "stream", "grad", "words", "serve", "multi", "beam", "ckpt")
     ap.add_argument("--phase", choices=all_phases + ("all",), default="all")
+    ap.add_argument("--load-layers", type=int, default=LOAD_LAYERS,
+                    help="layers of the ckpt phase's quantized-load measurement (32: full depth)")
     args = ap.parse_args()
     phases = all_phases if args.phase == "all" else (args.phase,)
 
@@ -2248,11 +2679,17 @@ def main() -> int:
             _stop(engine)
         del engine
         _free_device()
+    if "multi" in phases:
+        multi = phase_multi(card)
+        count(multi["launches"])
+        records["flash_attn_fwd"]["tp2_by_shape"] = multi["tp2_rows"]
+        _free_device()
+        lap("multi phase")
     if "beam" in phases:
         count(phase_beam(card))
         lap("beam phase")
     if "ckpt" in phases:
-        count(phase_ckpt(card))
+        count(phase_ckpt(card, load_layers=args.load_layers))
         lap("ckpt phase")
     leaked = _loaded(("jax", "jaxlib", "speaksense_tpu") + SERVER_PACKAGES)
     assert not leaked, leaked

@@ -22,8 +22,11 @@ without a pool takes the window path. With beam_size > 1 stream chunks ride the 
 (`runtime/beam_slots.py`), whose fallback retries go through the window
 path at t > 0.
 
-Not ported yet, raising NotImplementedError that names its ROADMAP item:
-multi-GPU sharding.
+`shard(mesh)` spreads the engine over a (dp, tp) mesh of processes, one per
+GPU (`parallel/`): the model tensor-parallel over tp, the slot pool's rows
+over dp, and the window path replicated over dp, as the JAX engine's
+unsharded window batch is. Each device call (`@collective`) runs on every
+rank of the mesh; the host logic runs on the leader.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from speaksense_tpu_torch.models import decode as D
 from speaksense_tpu_torch.config import EngineConfig
 from speaksense_tpu_torch.models import whisper as W
 from speaksense_tpu_torch.models.tokenizer import Tokenizer
+from speaksense_tpu_torch.parallel.workers import collective
 from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
 log = logging.getLogger(__name__)
@@ -57,11 +61,6 @@ log = logging.getLogger(__name__)
 SAMPLE_RATE = MEL.SAMPLE_RATE
 # whisper temperature fallback schedule (openai + whisper.cpp)
 FALLBACK_TEMPS = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to speaksense_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, remaining: multi-GPU)")
 
 
 @dataclass
@@ -167,6 +166,8 @@ class _PendingMultiChunk:
 
 
 class WhisperEngine(AsrEngine):
+    spmd_target = "engine"      # how a follower finds this object (`Mesh.call`)
+
     def __init__(self, model: W.Whisper, tokenizer: Tokenizer,
                  mel_filters: np.ndarray | None = None,
                  config: EngineConfig | None = None, name: str = "whisper", seed: int = 0):
@@ -188,8 +189,11 @@ class WhisperEngine(AsrEngine):
             for sns in (True, False) for turn in (True, False)
         }
         # sampling noise for the t > 0 fallback attempts (window and pool)
+        self.seed = seed
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._slot_server = None
+        self.mesh = None            # set by shard(): the (dp, tp) serving mesh
+        self._pool = None           # the slot pool, the one a follower's calls reach
 
     # ------------------------------------------------------------------ load
 
@@ -299,7 +303,35 @@ class WhisperEngine(AsrEngine):
         return cls.from_ggml(path, config=config, device=device)
 
     def shard(self, mesh) -> None:
-        raise _not_ported("multi-GPU sharding")
+        """Keep this rank's shard of the parameters on the (dp, tp) serving
+        mesh (`parallel.shard_params`, the Megatron layout: attention and
+        MLP projections split over tp, all else replicated, the suppress
+        masks included). Every device call after this runs on every rank of
+        the mesh, the leader's and the followers' (`parallel/workers.py`).
+
+        Call before enable_slot_serving, so the pool's pages shard too
+        (slot rows on dp, heads on tp)."""
+        from speaksense_tpu_torch.parallel import shard_params
+
+        if self._slot_server is not None:
+            raise RuntimeError("shard() must run before enable_slot_serving "
+                               "(the pool's pages must shard with the params)")
+        shard_params(self.model, mesh)
+        self.mesh = mesh
+        log.info("engine sharded over mesh %s (dp=%d, tp=%d), rank %d", mesh.devices.tolist(),
+                 mesh.shape["dp"], mesh.shape["tp"], mesh.rank)
+
+    def profile_trace(self, log_dir: str):
+        """Context manager: a `torch.profiler` trace of everything inside,
+        host and (on the card) device activity, written to `log_dir` as a
+        Chrome trace (`<host>_<pid>.<time>.pt.trace.json`) that TensorBoard
+        or Perfetto opens; the JAX engine's `profile_trace`."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir))
 
     # ------------------------------------------------------------------ audio
 
@@ -331,6 +363,7 @@ class WhisperEngine(AsrEngine):
             self.tokenizer, with_timestamps=with_ts,
             max_initial_ts=self.config.max_initial_ts, max_new_tokens=max_new)
 
+    @collective("window")
     def _run_window(self, mels, prompt, prompt_len, sot_index, temps, with_ts: bool,
                     max_new: int, suppress) -> dict:
         n_audio_ctx = min(mels.shape[1] // 2, self.dims.n_audio_ctx)
@@ -346,6 +379,7 @@ class WhisperEngine(AsrEngine):
         return {k: out[k].cpu().numpy()
                 for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
 
+    @collective("window")
     def _run_beam(self, mels, prompt, prompt_len, sot_index, with_ts: bool, max_new: int,
                   suppress, beam_size: int) -> dict:
         """The window path's beam-search attempt (the JAX `_beam_fn`)."""
@@ -474,6 +508,21 @@ class WhisperEngine(AsrEngine):
         METRICS.observe("asr_decode_window_seconds", time.perf_counter() - t_start)
         return results
 
+    @collective("window")
+    def first_step(self, mels, language: str = "en", task: str = "transcribe"):
+        """The encoder states and the logits of the first decoded token of
+        a batch of mel windows (B, T_mel, n_mels), the first step of
+        `decode_windows` (SOT prompt, no conditioning): f32 (B, A, d) and
+        (B, V) on the host. A device call of every rank of a sharded
+        engine, so the two can be held against an unsharded one."""
+        mels = torch.as_tensor(mels, device=self.device)
+        enc = W.encode(self.model, mels, n_ctx_out=min(mels.shape[1] // 2, self.dims.n_audio_ctx))
+        sot = self.tokenizer.sot_sequence(language, task=task)
+        prompt = torch.as_tensor([sot] * mels.shape[0], dtype=torch.long, device=self.device)
+        logits = W.decode_prefill(self.model, prompt, W.init_cache(self.model, enc, len(sot)))
+        return enc.cpu(), logits[:, -1].cpu()
+
+    @collective("window")
     def detect_language(self, audio: np.ndarray) -> str:
         mel = self.compute_mel(np.asarray(audio, np.float32)[:MEL.N_SAMPLES])
         enc = W.encode(self.model, mel, n_ctx_out=min(mel.shape[1] // 2, self.dims.n_audio_ctx))
@@ -587,6 +636,7 @@ class WhisperEngine(AsrEngine):
         return TranscribeResult(segments=all_segments, full_text="".join(full_text),
                                 language=language, n_tokens=n_tokens)
 
+    @collective("window")
     def _attach_words(self, segs: list[dict], res: dict, mel: torch.Tensor,
                       language: str | None, offset: float, window_dur: float) -> None:
         """Word-level timestamps by cross-attention DTW (`models/align.py`)
@@ -701,17 +751,48 @@ class WhisperEngine(AsrEngine):
         beam pool (`runtime/beam_slots.py`). int8_kv (int8 cross-KV)
         defaults to `config.cross_kv_int8`; self_int8 (int8 self-KV pages)
         defaults to on for beam pools, whose page reads dominate their step,
-        and off for greedy pools, as in the reference."""
+        and off for greedy pools, as in the reference.
+
+        On a sharded engine (shard() first) the pool's pages shard with the
+        params: slot rows on dp, heads on tp, and every follower builds its
+        part. The slot count is rounded down so the pool's S+1 rows divide
+        dp, as in the JAX engine."""
         from speaksense_tpu_torch.runtime.slots import StreamingDecodeServer
 
+        n_slots = n_slots or self.config.stream_slots
+        if self.mesh is not None:
+            dp = self.mesh.shape["dp"]
+            rounded = max(dp, (n_slots + 1) // dp * dp) - 1
+            if rounded != n_slots:
+                log.info("slot pool: %d slots -> %d so S+1 rows divide dp=%d",
+                         n_slots, rounded, dp)
+            n_slots = rounded
         if beam_size is None:
             beam_size = self.config.beam_size or 1
         if self_int8 is None:
             self_int8 = beam_size > 1
         self._slot_server = StreamingDecodeServer(
-            self, n_slots=n_slots or self.config.stream_slots, t_mel=t_mel, max_new=max_new,
+            self, n_slots=n_slots, t_mel=t_mel, max_new=max_new,
             int8_kv=self.config.cross_kv_int8 if int8_kv is None else int8_kv,
-            self_int8=self_int8, max_prompt=max_prompt, beam_size=beam_size)
+            self_int8=self_int8, max_prompt=max_prompt, mesh=self.mesh, beam_size=beam_size)
+
+    @collective("pool")
+    def _new_pool(self, beam_size: int, **kw):
+        """The slot pool of `StreamingDecodeServer` (a beam pool for
+        beam_size > 1), built on every rank of a mesh: a follower's pool
+        calls reach its part."""
+        from speaksense_tpu_torch.runtime.beam_slots import BeamSlotPool
+        from speaksense_tpu_torch.runtime.slots import SlotPool
+
+        if beam_size and beam_size > 1:
+            self._pool = BeamSlotPool(self, beam_size=beam_size, mesh=self.mesh, **kw)
+        else:
+            self._pool = SlotPool(self, mesh=self.mesh, **kw)
+        return self._pool
+
+    @collective("pool")
+    def _drop_pool(self) -> None:
+        self._pool = None
 
     @property
     def device_denoise(self) -> bool:
@@ -724,6 +805,7 @@ class WhisperEngine(AsrEngine):
         if self._slot_server is not None:
             self._slot_server.stop()
             self._slot_server = None
+            self._drop_pool()
 
     def _pool_candidate(self, raw: dict) -> dict:
         """Host-side quality features of one pooled decode result, as

@@ -15,9 +15,12 @@ Q4_0/Q4_1/Q5_0/Q5_1/Q8_0 blocks) are read natively:
       int32 ne[n_dims] (ne[0] fastest-varying), name bytes, raw data
       (no alignment padding)
 
-The block codecs are vectorized numpy only: the JAX package first tries a
-multithreaded C++ dequant for tensors of 65,536 elements or more, which is
-host loading speed and not ported (ROADMAP). The results are the same. The
+Tensors of 65,536 elements or more are decoded by the multithreaded C++
+kernels of `speaksense_tpu_torch/native` (the JAX package's rule); the
+vectorized numpy codecs below are the reference and decode the rest, every
+tensor with `use_native=False`, and every tensor where g++ is missing. The
+results are the same. Unlike the JAX package, a native build or call that
+fails where g++ is present raises instead of falling back to numpy. The
 writer fabricates checkpoints from seeded weights for the tests and the
 chip smoke test.
 """
@@ -52,8 +55,18 @@ def _f16(x: np.ndarray) -> np.ndarray:
     return x.astype(np.float16)
 
 
-def dequantize(data: bytes, ttype: int, n: int) -> np.ndarray:
-    """Decode `n` elements of ggml type `ttype` from raw bytes -> f32."""
+def dequantize(data: bytes, ttype: int, n: int, use_native: bool = True) -> np.ndarray:
+    """Decode `n` elements of ggml type `ttype` from raw bytes -> f32.
+
+    With use_native, tensors of 65,536 elements or more go through the C++
+    kernels (`native.dequantize_native`) when g++ is present; the numpy
+    codecs below are the reference and take the rest."""
+    if use_native and n >= (1 << 16):
+        from speaksense_tpu_torch.native import dequantize_native
+
+        out = dequantize_native(data, ttype, n)
+        if out is not None:
+            return out
     if ttype == F32:
         return np.frombuffer(data, "<f4", count=n).copy()
     if ttype == F16:
@@ -211,11 +224,13 @@ def _block_index(name: str) -> int:
     return int(parts[2]) if len(parts) > 2 and parts[1] == "blocks" else -1
 
 
-def load_ggml(path_or_file, max_layers: int | None = None) -> GgmlModel:
+def load_ggml(path_or_file, max_layers: int | None = None,
+              use_native: bool = True) -> GgmlModel:
     """Parse a whisper ggml checkpoint into numpy tensors (dequantized f32).
 
     max_layers cuts the depth: only encoder and decoder blocks below it are
-    read (the others are skipped unread) and the dims say so."""
+    read (the others are skipped unread) and the dims say so. use_native is
+    `dequantize`'s."""
     f = open(path_or_file, "rb") if isinstance(path_or_file, (str, bytes)) else path_or_file
     close = isinstance(path_or_file, (str, bytes))
     try:
@@ -259,7 +274,7 @@ def load_ggml(path_or_file, max_layers: int | None = None) -> GgmlModel:
             if max_layers is not None and _block_index(name) >= max_layers:
                 f.seek(nbytes, io.SEEK_CUR)
                 continue
-            arr = dequantize(_read_exact(f, nbytes), ttype, n)
+            arr = dequantize(_read_exact(f, nbytes), ttype, n, use_native)
             # ne[0] is fastest-varying -> numpy shape is reversed(ne)
             tensors[name] = arr.reshape(tuple(reversed(ne)))
         return GgmlModel(dims=dims, ftype=ftype, filters=filters, vocab=vocab, tensors=tensors)

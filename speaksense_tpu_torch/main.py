@@ -13,13 +13,19 @@ checkpoint raises. `build_context(config, engine)` wires the task queue,
 the stores and auth on it; it needs neither aiohttp nor grpcio, which the
 front doors of `serve` import (the GPU image has neither).
 
-Two pieces of the JAX `main.py` have no counterpart: the XLA compilation
-cache (the port compiles only its kernels, cached under a source hash in
-`ops/_build/`), and multi-chip serving: `--tp`/`--dp` above 1 and a set
-`SPEAKSENSE_COORDINATOR` raise NotImplementedError (ROADMAP Queue 1 item 6)
-rather than serve on one card.
+Multi-GPU serving follows JAX `main.py:86-112`: tp = `--tp` (default 1), dp
+= `--dp` (default: the local cards // tp), tp x dp above the local cards
+raises ValueError, and tp = dp = 1 builds no process group and no mesh. The
+port runs one process per GPU: this process is local rank 0, the leader,
+which serves; it starts the other tp x dp - 1 local ranks itself
+(`parallel/workers.py`), which follow. With `SPEAKSENSE_COORDINATOR` (and
+`_NUM_PROCESSES`, `_PROCESS_ID`) the hosts join one process group and each
+host serves its own requests on its own mesh (`parallel/multihost.py`).
+The XLA compilation cache has no counterpart: the port compiles only its
+kernels, cached under a source hash in `ops/_build/`.
 
 Run: python -m speaksense_tpu_torch.main [--model PATH | --fake-engine] [--device cpu]
+     [--tp N] [--dp N]
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
-import os
 import signal
+
+import torch
 
 from speaksense_tpu_torch.asr.engine import WhisperEngine
 from speaksense_tpu_torch.config import Config
@@ -38,22 +45,30 @@ from speaksense_tpu_torch.utils import logging as logsetup
 log = logging.getLogger("speaksense")
 
 
+def load_engine(config: Config, model: str | None = None, seed: int = 0,
+                device="cuda") -> WhisperEngine:
+    """The WhisperEngine on `device` over the checkpoint at
+    `config.model_path` (ggml file or HF directory), or, when `model` names
+    one of `MODEL_DIMS`, over random weights of that model drawn from
+    `seed`. Every rank of a mesh builds its engine with it."""
+    if model is None:
+        return WhisperEngine.from_pretrained(config.model_path, config=config.engine,
+                                             device=device)
+    return WhisperEngine.from_random(model, config=config.engine, device=device, seed=seed)
+
+
 def build_engine(config: Config, model: str | None = None, device="cuda", seed: int = 0,
                  max_wait_ms: float = 5.0, slot_serving: bool = False,
                  slots: int | None = None, slot_tokens: int = 96,
-                 slot_prompt: int = 16) -> BatchedEngine:
-    """A window-batching engine on `device` over the checkpoint at
-    `config.model_path` (ggml file or HF directory), or, when `model` names
-    one of `MODEL_DIMS`, over random weights of that model drawn from
-    `seed`. slot_serving routes stream chunks through the token-level slot
-    pool of `slots` slots (default `config.engine.stream_slots`),
-    `slot_tokens` new tokens and `slot_prompt` prompt tokens per chunk."""
-    if model is None:
-        engine = WhisperEngine.from_pretrained(config.model_path, config=config.engine,
-                                               device=device)
-    else:
-        engine = WhisperEngine.from_random(model, config=config.engine, device=device,
-                                           seed=seed)
+                 slot_prompt: int = 16, mesh=None) -> BatchedEngine:
+    """A window-batching engine over `load_engine(config, model, seed,
+    device)`, sharded on `mesh` (this process leads it) when given.
+    slot_serving routes stream chunks through the token-level slot pool of
+    `slots` slots (default `config.engine.stream_slots`), `slot_tokens` new
+    tokens and `slot_prompt` prompt tokens per chunk."""
+    engine = load_engine(config, model, seed, device)
+    if mesh is not None:
+        engine.shard(mesh)
     if slot_serving:
         engine.enable_slot_serving(n_slots=slots, max_new=slot_tokens, max_prompt=slot_prompt)
     return BatchedEngine(engine, max_wait_ms=max_wait_ms)
@@ -99,14 +114,42 @@ def build_context(config: Config, engine):
     return AppContext(auth=auth, task_manager=manager), scheduler
 
 
-def check_single_card(config: Config) -> None:
-    """Multi-chip serving is not ported: refuse it instead of serving on one
-    card."""
-    if config.tp > 1 or config.dp > 1 or os.environ.get("SPEAKSENSE_COORDINATOR"):
-        raise NotImplementedError(
-            f"multi-GPU serving (tp={config.tp}, dp={config.dp}, SPEAKSENSE_COORDINATOR="
-            f"{os.environ.get('SPEAKSENSE_COORDINATOR')!r}) is not ported yet "
-            "(ROADMAP Queue 1 item 6); the port serves on one card")
+def serving_layout(config: Config, device="cuda") -> tuple[int, int]:
+    """(tp, dp) of this host's mesh, JAX `main.py:98-107`: tp = config.tp,
+    dp = config.dp or the local cards // tp; tp x dp above the local cards
+    raises ValueError. On the CPU the ranks are processes, as many as asked."""
+    tp = max(1, config.tp)
+    if torch.device(device).type == "cuda":
+        n_local = torch.cuda.device_count()
+    else:
+        n_local = tp * max(1, config.dp)
+    dp = config.dp or max(1, n_local // tp)
+    if tp * dp > n_local:
+        raise ValueError(f"tp={tp} x dp={dp} exceeds {n_local} local devices")
+    return tp, dp
+
+
+def worker_spec(config: Config, tp: int, dp: int, device="cuda", model: str | None = None,
+                seed: int = 0):
+    """The `parallel.workers.WorkerSpec` of this host's tp x dp ranks, or
+    None when the server is one process: one host (no
+    SPEAKSENSE_COORDINATOR) and tp = dp = 1."""
+    from speaksense_tpu_torch.parallel.multihost import distributed_env
+    from speaksense_tpu_torch.parallel.workers import WorkerSpec, free_port, local_devices
+
+    local = tp * dp
+    hosts = distributed_env()
+    if hosts is None and local == 1:
+        return None
+    if hosts is None:
+        init = dict(coordinator=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0)
+    else:
+        coordinator, num_processes, process_id = hosts
+        init = dict(coordinator=coordinator, num_processes=num_processes,
+                    process_id=process_id)
+    return WorkerSpec(init={**init, "local_ranks": local}, tp=tp,
+                      devices=local_devices(device, local), build=load_engine,
+                      build_args=(config, model, seed))
 
 
 async def serve(config: Config, fake_engine: bool = False,
@@ -115,13 +158,37 @@ async def serve(config: Config, fake_engine: bool = False,
                 slots: int | None = None, device="cuda") -> None:
     """Serve gRPC and REST until SIGTERM/SIGINT or the gRPC server ends,
     then drain: stop claiming tasks, finish the batcher's in-flight batch,
-    stop the slot pool, deregister from etcd, close both servers."""
-    check_single_card(config)
+    stop the slot pool, deregister from etcd, close both servers. On a
+    mesh this process leads: it starts the other local ranks first and
+    stops them last."""
+    from speaksense_tpu_torch.parallel.workers import (join_mesh, start_workers, stop_workers,
+                                                       watch_workers)
+
+    spec = None
+    if not fake_engine:
+        spec = worker_spec(config, *serving_layout(config, device), device=device)
+    config.init_dirs()
+    procs, mesh = [], None
+    if spec is not None:
+        procs = start_workers(spec)
+        device = spec.devices[0]
+    try:
+        if spec is not None:
+            mesh = join_mesh(spec, 0)
+            watch_workers(mesh, procs)
+        await _serve(config, fake_engine, slot_serving, slot_prompt, condition, slot_tokens,
+                     slots, device, mesh)
+    finally:
+        if spec is not None:
+            stop_workers(mesh, procs)
+
+
+async def _serve(config: Config, fake_engine: bool, slot_serving: bool, slot_prompt: int,
+                 condition: bool, slot_tokens: int, slots: int | None, device, mesh) -> None:
     from speaksense_tpu_torch.registry.etcd import EtcdRegistry
     from speaksense_tpu_torch.serving.grpc_server import GrpcServer
     from speaksense_tpu_torch.serving.rest import start_server
 
-    config.init_dirs()
     if fake_engine:
         from speaksense_tpu_torch.asr.fake import FakeAsrEngine
 
@@ -130,7 +197,8 @@ async def serve(config: Config, fake_engine: bool = False,
     else:
         # all gRPC streams + task workers share one continuously-batched engine
         engine = build_engine(config, device=device, slot_serving=slot_serving,
-                              slots=slots, slot_tokens=slot_tokens, slot_prompt=slot_prompt)
+                              slots=slots, slot_tokens=slot_tokens, slot_prompt=slot_prompt,
+                              mesh=mesh)
     inner = getattr(engine, "engine", engine)
     ctx, scheduler = build_context(config, engine)
 
@@ -204,9 +272,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--beam-size", type=int, default=None,
                         help="beam search width at t=0 (default greedy)")
     parser.add_argument("--tp", type=int, default=None,
-                        help="tensor-parallel width; above 1 is not ported yet (raises)")
+                        help="tensor-parallel width: GPUs (one process each) that "
+                             "split the model (default 1)")
     parser.add_argument("--dp", type=int, default=None,
-                        help="data-parallel width; above 1 is not ported yet (raises)")
+                        help="data-parallel width: replicas that split the slot "
+                             "pool's rows (default: local GPUs // tp)")
     parser.add_argument("--slot-serving", action="store_true",
                         help="route streaming chunks through the token-level "
                              "slot pool (runtime/slots.py) instead of the "

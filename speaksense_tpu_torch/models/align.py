@@ -50,9 +50,11 @@ def cross_attention_weights(model: W.Whisper, tokens: torch.Tensor,
     `W._attention`; the cross K/V are f32 products of the f32 encoder
     states (`_linear_f32`, int8 weights through its int8 branch) and stay
     f32; f32 logits of the compute-dtype queries and softmax; the weights
-    are rounded to the compute dtype before the f32 value product."""
+    are rounded to the compute dtype before the f32 value product. On a
+    tp-sharded model each rank computes its heads and the weights of every
+    head are gathered over tp, so every rank returns all H."""
     dec = model.decoder
-    n_head = model.dims.n_text_head
+    n_head = model.n_text_head
     T = tokens.shape[1]
     x = dec.tok_emb[tokens] + dec.pos[:T]
     idx = torch.arange(T, device=tokens.device)
@@ -72,7 +74,8 @@ def cross_attention_weights(model: W.Whisper, tokens: torch.Tensor,
         return torch.matmul(w.to(cq.dtype).float(), cv).to(cq.dtype)
 
     W._decoder_blocks(model, x, self_attn, cross_attn)
-    return torch.stack(weights)
+    out = torch.stack(weights)
+    return out if model.mesh is None else model.mesh.all_gather(out, dim=2)
 
 
 def _median_filter(x: np.ndarray, width: int = MEDIAN_WIDTH) -> np.ndarray:

@@ -160,7 +160,7 @@ def beam_forward(model: W.Whisper, tok: torch.Tensor, pos: torch.Tensor, pages: 
     (B·K, V)."""
     dec = model.decoder
     B, K = tok.shape
-    H = model.dims.n_text_head
+    H = model.n_text_head
     x = (dec.tok_emb[tok.reshape(-1)] + dec.pos[pos.reshape(-1)])[:, None, :]
 
     def to_rows(t):     # (B·K, H, 1, Dh) -> (B, H, K, Dh)

@@ -33,6 +33,13 @@ output channel (`quantize_block_weights`), cross-KV with a scale per channel
 ring in the compute dtype feeds (`KVCache`): the ring is kept because when a
 column turns int8 shows in the results, and the reference quantizes at its
 ring's flush.
+
+A model sharded by `parallel.shard_params` holds its rank's tp shard: every
+attention runs on the rank's n_head / tp heads (`Whisper.n_audio_head`,
+`Whisper.n_text_head`), its caches and pages hold those heads, and each
+row-parallel linear sums its f32 partial products over the tp group
+(`Linear.reduce`) before its bias and its one rounding. An unsharded model
+has no collective.
 """
 
 from __future__ import annotations
@@ -115,11 +122,15 @@ class Linear(nn.Module):
     """y = x Wᵀ + b with the weight in the compute dtype and the bias in f32;
     after `quantize_` (or `set_int8_`) an int8 weight `wq` (out, in) with an
     f32 scale `ws` (out,) per output channel takes the weight's place:
-    y = (x @ wqᵀ) · ws + b (JAX `_linear`'s "wq" branch)."""
+    y = (x @ wqᵀ) · ws + b (JAX `_linear`'s "wq" branch).
+
+    reduce is None, or on a row-parallel shard the sum over the tp group of
+    the f32 partial products (`parallel.shard_params`)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, device, dtype):
         super().__init__()
         self.dtype = dtype
+        self.reduce = None
         self.weight = _param(d_out, d_in, device=device, dtype=dtype)
         self.bias = _param(d_out, device=device, dtype=torch.float32) if bias else None
         self.register_parameter("wq", None)
@@ -216,6 +227,10 @@ class Whisper(nn.Module):
         super().__init__()
         self.dims = dims
         self.dtype = dtype
+        # heads of this rank: the whole model's until `parallel.shard_params`
+        self.n_audio_head = dims.n_audio_head
+        self.n_text_head = dims.n_text_head
+        self.mesh = None
         self.encoder = AudioEncoder(dims, device, dtype)
         self.decoder = TextDecoder(dims, device, dtype)
 
@@ -365,16 +380,22 @@ def _linear(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     bf16) and, with a bias, its f32 result (`_mm`) takes the f32 bias
     before the one rounding. An int8 layer multiplies by wq in x's dtype
     (every int8 value is exact there) with an f32 result and scales it per
-    output channel before the bias."""
+    output channel before the bias. A row-parallel shard sums its f32
+    partial products over tp first, so the bias is added and the result
+    rounded once, as without sharding."""
     if lin.wq is not None:
-        y = _mm(x, lin.wq.to(x.dtype)) * lin.ws
-    elif lin.bias is None:
+        y = _reduce(lin, _mm(x, lin.wq.to(x.dtype))) * lin.ws
+    elif lin.bias is None and lin.reduce is None:
         return F.linear(x, lin.weight)
     else:
-        y = _mm(x, lin.weight)
+        y = _reduce(lin, _mm(x, lin.weight))
     if lin.bias is not None:
         y = y + lin.bias
     return y.to(x.dtype)
+
+
+def _reduce(lin: Linear, y: torch.Tensor) -> torch.Tensor:
+    return y if lin.reduce is None else lin.reduce(y)
 
 
 class _MmF32(torch.autograd.Function):
@@ -426,9 +447,9 @@ def _linear_f32(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     and the cross-KV projections of the f32 encoder states. An int8 layer's
     product takes wq in the compute dtype and its scale in f32."""
     if lin.wq is not None:
-        y = _mm(x, lin.wq.to(lin.dtype)) * lin.ws
+        y = _reduce(lin, _mm(x, lin.wq.to(lin.dtype))) * lin.ws
     else:
-        y = _mm(x, lin.weight)
+        y = _reduce(lin, _mm(x, lin.weight))
     return y if lin.bias is None else y + lin.bias
 
 
@@ -449,9 +470,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv_proj(h: torch.Tensor, blk: EncoderBlock, n_head: int):
-    """Fused q/k/v projection; returns (B, H, T, Dh) views of one buffer."""
-    d = h.shape[-1]
+    """Fused q/k/v projection; returns (B, H, T, Dh) views of one buffer
+    (H and the width d of each third are the rank's own)."""
     qkv = _linear(h, blk.qkv)
+    d = qkv.shape[-1] // 3
     return tuple(_split_heads(qkv[..., i * d:(i + 1) * d], n_head) for i in range(3))
 
 
@@ -500,10 +522,10 @@ def _encode(model: Whisper, mel: torch.Tensor, n_ctx_out: int | None) -> torch.T
     x = _gelu(_conv1d(x, enc.conv2))
     t = x.shape[1] if n_ctx_out is None else n_ctx_out
     x = x[:, :t] + enc.pos[:t].float()
-    n_head = model.dims.n_audio_head
-    d = x.shape[-1]
+    n_head = model.n_audio_head
     for blk in enc.blocks:
         qkv = _linear_f32(_ln(x, blk.attn_ln), blk.qkv).to(model.dtype)
+        d = qkv.shape[-1] // 3
         q, k, v = (_split_heads(qkv[..., i * d:(i + 1) * d], n_head) for i in range(3))
         x = x + _linear_f32(_merge_heads(flash_attention_full(q, k, v)), blk.o)
         h = _ln(x, blk.mlp_ln)
@@ -579,7 +601,7 @@ def compute_cross_kv(model: Whisper, enc_out: torch.Tensor, int8: bool = False):
     quantizes each layer's f32 K/V per channel instead and returns (kq, vq,
     ks, vs), the JAX `compute_cross_kv(..., int8=True)` contract. Computed
     once per window batch or slot admission."""
-    n_head = model.dims.n_text_head
+    n_head = model.n_text_head
     per_layer = []
     for blk in model.decoder.blocks:
         k = _split_heads(_linear_f32(enc_out, blk.ck), n_head)
@@ -597,8 +619,8 @@ def zero_cross(model: Whisper, n_rows: int, n_audio_ctx: int, device,
     """Zero cross-KV pages of n_rows rows, in `compute_cross_kv`'s form:
     (k, v) in the compute dtype, or int8 (kq, vq) with zero scales."""
     dims = model.dims
-    H = dims.n_text_head
-    shape = (dims.n_text_layer, n_rows, H, n_audio_ctx, dims.n_text_state // H)
+    shape = (dims.n_text_layer, n_rows, model.n_text_head, n_audio_ctx,
+             dims.n_text_state // dims.n_text_head)
     if not int8:
         return tuple(torch.zeros(shape, dtype=model.dtype, device=device) for _ in "kv")
     scales = shape[:3] + (1, shape[4])
@@ -614,9 +636,8 @@ def new_cache(model: Whisper, cross: tuple, t_cap: int, self_int8: bool = False,
     int8 with zero per-token scales when self_int8; and a ring of
     ring_width rows in the compute dtype when ring_width is given."""
     dims = model.dims
-    H = dims.n_text_head
-    lead = (dims.n_text_layer, cross[0].shape[1], H) + ((beams,) if beams else ())
-    shape = lead + (t_cap, dims.n_text_state // H)
+    lead = (dims.n_text_layer, cross[0].shape[1], model.n_text_head) + ((beams,) if beams else ())
+    shape = lead + (t_cap, dims.n_text_state // dims.n_text_head)
     dev = cross[0].device
     page_dtype = torch.int8 if self_int8 else model.dtype
     cache = KVCache(self_k=torch.zeros(shape, dtype=page_dtype, device=dev),
@@ -715,7 +736,7 @@ def _decoder_blocks(model: Whisper, x: torch.Tensor, self_attn, cross_attn) -> t
     """Run the decoder blocks on x (B, P, d). self_attn(i, q, k, v) stores
     layer i's new keys and values where its cache keeps them and returns
     the self-attention output; cross_attn(i, cq) attends to the encoder."""
-    n_head = model.dims.n_text_head
+    n_head = model.n_text_head
     for i, blk in enumerate(model.decoder.blocks):
         h = _ln(x, blk.attn_ln)
         q, k, v = _qkv_proj(h, blk, n_head)

@@ -29,7 +29,7 @@ import torch
 
 from speaksense_tpu_torch.models import beam as BM
 from speaksense_tpu_torch.models import whisper as W
-from speaksense_tpu_torch.runtime.slots import SlotPool, _StreamJob
+from speaksense_tpu_torch.runtime.slots import SlotPool
 
 
 class BeamSlotPool(SlotPool):
@@ -43,43 +43,40 @@ class BeamSlotPool(SlotPool):
         super().__init__(engine, n_slots, t_mel, max_new, **kw)
 
     def _empty_state(self) -> BM.BeamPoolState:
-        return BM.BeamPoolState.empty(self.model, self.S, self.K, self.max_new, self.t_text,
+        return BM.BeamPoolState.empty(self.model, self.R, self.K, self.max_new, self.t_text,
                                       self.n_audio_ctx, self.cfg.eot, self.device,
                                       cross_int8=self.int8_kv, self_int8=self.self_int8,
                                       ring_width=self.RING_WIDTH)
 
-    def _admit_rows(self, batch: list[_StreamJob], enc: torch.Tensor, prompts: torch.Tensor,
-                    slots: torch.Tensor, plen: torch.Tensor, sot: torch.Tensor) -> None:
+    def _admit_rows(self, enc: torch.Tensor, prompts: torch.Tensor, slots: torch.Tensor,
+                    plen: torch.Tensor, sot: torch.Tensor, temps: torch.Tensor,
+                    born: int) -> None:
         st = self.state
-        S, K = self.S, self.K
+        K = self.K
         P = prompts.shape[1]
-        rows = torch.arange(len(batch), device=prompts.device)
+        rows = torch.arange(len(slots), device=prompts.device)
         logits = W.prefill_into_pool(self.model, enc, prompts, st.pages, slots)
-        st.last_logits.view(S, K, -1)[slots] = logits[rows, plen - 1][:, None, :]
+        st.last_logits.view(self.R, K, -1)[slots] = logits[rows, plen - 1][:, None, :]
         st.ns_prob[slots] = torch.softmax(logits[rows, sot], dim=-1)[:, self.cfg.no_speech]
         own = torch.arange(K, device=prompts.device)
         st.anc[slots] = own[:, None]
         st.anc_ring[slots] = own[:, None]
         st.tokens[slots] = self.cfg.eot
-        st.scores[slots] = BM._initial_scores(len(batch), K, prompts.device)
+        st.scores[slots] = BM._initial_scores(len(slots), K, prompts.device)
         for t in (st.n_sampled, st.last, st.penult, st.last_ts, st.finished, st.nstep):
             t[slots] = 0
         st.plen[slots] = plen
         st.ppad[slots] = P
         st.fcol[slots] = P
-        st.born[slots] = self.ring_n
+        st.born[slots] = born
         st.active[slots] = True
 
-    def step(self) -> list[_StreamJob]:
-        """One pool-wide beam step; returns the jobs that finished."""
-        finished = BM.beam_pool_step(self.model, self.cfg, self.suppress, self.state,
-                                     self.ring_n)
-        self.step_calls += 1
-        self.total_steps += 1
-        self.occupancy_sum += len(self.jobs)
-        return self._retire(finished)
+    def _device_step(self, hot: bool, ring_n: int) -> torch.Tensor:
+        """One pool-wide beam step (t = 0 only: `hot` is never set)."""
+        return BM.beam_pool_step(self.model, self.cfg, self.suppress, self.state, ring_n)
 
     def _meta(self, finished: torch.Tensor) -> list[torch.Tensor]:
         n_sampled, sum_lp, tokens = BM.best_hypothesis(self.state)
-        return [finished.int(), n_sampled.int(), sum_lp.view(torch.int32),
-                self.state.ns_prob.view(torch.int32), tokens.int().reshape(-1)]
+        return [finished.int()[:, None], n_sampled.int()[:, None],
+                sum_lp.view(torch.int32)[:, None], self.state.ns_prob.view(torch.int32)[:, None],
+                tokens.int()]

@@ -31,6 +31,14 @@ cross-KV and prompt prefill all run on the device. Retirement reads one
 packed copy of the per-slot results after every step; admission and
 retirement both run on the server thread between steps, so a recycled slot
 can never be retired with its previous occupant's values.
+
+On a sharded engine (`mesh`) the pool has the reference's S + 1 rows (row S
+a scratch row that never activates), split over dp: each dp replica holds
+(S + 1) / dp consecutive rows and the heads of its tp rank. Admission,
+step and rebuild are device calls of every rank (`@collective("pool")`): a
+replica admits the windows whose slots are its rows, every replica steps
+its rows, and the packed results are gathered over dp, so the leader's
+retirement reads every slot.
 """
 
 from __future__ import annotations
@@ -48,17 +56,9 @@ from speaksense_tpu_torch.audio import dsp as DSP
 from speaksense_tpu_torch.audio import mel as MEL
 from speaksense_tpu_torch.models import decode as D
 from speaksense_tpu_torch.models import whisper as W
+from speaksense_tpu_torch.parallel.workers import collective
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to speaksense_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"remaining: {item})")
-
-
-_MULTI = "multi-GPU"
 
 
 @dataclass
@@ -80,6 +80,8 @@ class _StreamJob:
 class SlotPool:
     """Device-resident decode state for S slots, and host-side occupancy."""
 
+    spmd_target = "pool"        # how a follower finds this object (`Mesh.call`)
+
     # rows per admission: the reference's largest admission bucket (eager
     # PyTorch needs no padding of a smaller batch to a bucket)
     ADMIT_BUCKET = 8
@@ -87,7 +89,8 @@ class SlotPool:
     RING_WIDTH = 16
 
     def __init__(self, engine, n_slots: int, t_mel: int, max_new: int,
-                 max_prompt: int = 16, int8_kv: bool = False, self_int8: bool = False):
+                 max_prompt: int = 16, int8_kv: bool = False, self_int8: bool = False,
+                 mesh=None):
         self.engine = engine
         self.int8_kv = int8_kv
         self.self_int8 = self_int8
@@ -95,6 +98,21 @@ class SlotPool:
         self.dims = engine.dims
         self.device = engine.device
         self.S = n_slots
+        self.mesh = mesh
+        dp = 1 if mesh is None else mesh.shape["dp"]
+        rows = n_slots + (mesh is not None)
+        if rows % dp:
+            raise ValueError(f"a multi-GPU pool's S+1={rows} rows must divide the mesh's "
+                             f"dp={dp} (engine.enable_slot_serving rounds the slot count)")
+        # this replica's rows [base, base + R) of the pool's
+        self.R = rows // dp
+        self.base = 0 if mesh is None else mesh.dp_index * self.R
+        # t > 0 sampling noise: the engine's generator, or one per dp
+        # replica, seeded alike on its tp ranks (they sample the same rows)
+        self.rng = engine._rng
+        if mesh is not None:
+            self.rng = torch.Generator(device=engine.device).manual_seed(
+                engine.seed + 1 + mesh.dp_index)
         self.t_mel = t_mel
         self.n_audio_ctx = min(t_mel // 2, self.dims.n_audio_ctx)
         self.max_new = max_new
@@ -130,7 +148,7 @@ class SlotPool:
         bool(self.state.active.any())
 
     def _empty_state(self) -> D.PoolState:
-        return D.PoolState.empty(self.model, self.S, self.max_new, self.t_text,
+        return D.PoolState.empty(self.model, self.R, self.max_new, self.t_text,
                                  self.n_audio_ctx, self.cfg.eot, self.device,
                                  cross_int8=self.int8_kv, self_int8=self.self_int8,
                                  ring_width=self.RING_WIDTH)
@@ -143,6 +161,10 @@ class SlotPool:
             if not job.future.done():
                 job.future.set_exception(err)
         self.jobs.clear()
+        self._rebuild()
+
+    @collective("pool")
+    def _rebuild(self) -> None:
         self._init_state()
 
     def state_healthy(self) -> bool:
@@ -161,21 +183,13 @@ class SlotPool:
         timestamped ones, max_prompt the conditioned rows."""
         return tuple(sorted({b for b in (4, 16, self.max_prompt) if b <= self.max_prompt}))
 
-    def _encode_batch(self, batch: list[_StreamJob]) -> torch.Tensor:
+    def _encode(self, x: np.ndarray, is_audio: bool, denoise: str | None) -> torch.Tensor:
         """Stacked job inputs -> f32 encoder states (n, n_audio_ctx, d)."""
-        if batch[0].is_audio:
-            want = (self.t_mel * MEL.HOP_LENGTH,)
-        else:
-            want = (self.t_mel, self.dims.n_mels)
-        for job in batch:
-            if job.mel.shape != want:
-                raise ValueError(f"pool input shape {job.mel.shape} != {want}")
-        x = torch.as_tensor(np.stack([j.mel for j in batch]), device=self.device)
-        if batch[0].is_audio:
+        x = torch.as_tensor(x, device=self.device)
+        if is_audio:
             x = MEL.pcm_to_f32(x)
-            if batch[0].denoise:
-                x = DSP.denoise_audio_torch(x, DSP.DenoiseConfig(post_gain=1.0),
-                                            branch=batch[0].denoise)
+            if denoise:
+                x = DSP.denoise_audio_torch(x, DSP.DenoiseConfig(post_gain=1.0), branch=denoise)
             x = MEL.log_mel_spectrogram(x, n_mels=self.dims.n_mels,
                                         filters=self.engine.mel_filters, pad_to_chunk=False)
         return W.encode(self.model, x, n_ctx_out=self.n_audio_ctx)
@@ -196,7 +210,12 @@ class SlotPool:
                 break
             batch.append(j)
         take = len(batch)
+        want = ((self.t_mel * MEL.HOP_LENGTH,) if batch[0].is_audio
+                else (self.t_mel, self.dims.n_mels))
         try:
+            for job in batch:
+                if job.mel.shape != want:
+                    raise ValueError(f"pool input shape {job.mel.shape} != {want}")
             P = max(len(j.prompt) for j in batch)
             if P > self.max_prompt:
                 raise ValueError(f"pool prompt of {P} tokens exceeds "
@@ -209,12 +228,14 @@ class SlotPool:
                 prompts[i, :len(job.prompt)] = job.prompt
                 self.jobs[job.slot] = job
 
-            dev = self.device
-            slots = torch.as_tensor([j.slot for j in batch], dtype=torch.long, device=dev)
-            plen = torch.as_tensor([len(j.prompt) for j in batch], dtype=torch.long, device=dev)
-            sot = torch.as_tensor([j.sot_index for j in batch], dtype=torch.long, device=dev)
-            self._admit_rows(batch, self._encode_batch(batch),
-                             torch.as_tensor(prompts, device=dev), slots, plen, sot)
+            def col(key, dtype):
+                return np.asarray([key(j) for j in batch], dtype)
+
+            self._admit(np.stack([j.mel for j in batch]), batch[0].is_audio, batch[0].denoise,
+                        prompts, col(lambda j: j.slot, np.int64),
+                        col(lambda j: len(j.prompt), np.int64),
+                        col(lambda j: j.sot_index, np.int64),
+                        col(lambda j: j.temperature, np.float32), self.ring_n)
         except Exception as e:
             # roll the batch back: a failed admission must not kill the
             # server thread or strand these futures; the other slots'
@@ -233,25 +254,47 @@ class SlotPool:
         self.admit_rows += take
         return take
 
-    def _admit_rows(self, batch: list[_StreamJob], enc: torch.Tensor, prompts: torch.Tensor,
-                    slots: torch.Tensor, plen: torch.Tensor, sot: torch.Tensor) -> None:
-        """The device half of an admission: cross-KV and prefill into the
-        rows `slots`, and their decode state reset. Activates the rows
-        last, so a failure leaves them inactive."""
+    @collective("pool")
+    def _admit(self, x: np.ndarray, is_audio: bool, denoise: str | None, prompts: np.ndarray,
+               slots: np.ndarray, plen: np.ndarray, sot: np.ndarray, temps: np.ndarray,
+               born: int) -> None:
+        """The device half of an admission of n windows (inputs x, padded
+        prompts (n, P), pool slots, true prompt lengths, SOT positions,
+        temperatures; born: the ring row of the step to come): the rows of
+        this replica are encoded and written (`_admit_rows`)."""
+        mine = (slots >= self.base) & (slots < self.base + self.R)
+        if not mine.any():
+            return
+        if not mine.all():
+            x, prompts, slots, plen, sot, temps = (a[mine] for a in
+                                                   (x, prompts, slots, plen, sot, temps))
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
+        self._admit_rows(self._encode(x, is_audio, denoise), t(prompts), t(slots - self.base),
+                         t(plen), t(sot), t(temps), born)
+
+    def _admit_rows(self, enc: torch.Tensor, prompts: torch.Tensor, slots: torch.Tensor,
+                    plen: torch.Tensor, sot: torch.Tensor, temps: torch.Tensor,
+                    born: int) -> None:
+        """Cross-KV and prefill into this replica's rows `slots`, and their
+        decode state reset. Activates the rows last, so a failure leaves
+        them inactive."""
         st = self.state
         P = prompts.shape[1]
-        rows = torch.arange(len(batch), device=prompts.device)
+        rows = torch.arange(len(slots), device=prompts.device)
         logits = W.prefill_into_pool(self.model, enc, prompts, st.pages, slots)
         st.last_logits[slots] = logits[rows, plen - 1]
         # no-speech probability at the SOT position (openai's probs_at_sot),
         # read at settle against no_speech_thold
         st.ns_prob[slots] = torch.softmax(logits[rows, sot], dim=-1)[:, self.cfg.no_speech]
-        st.temp[slots] = torch.as_tensor([j.temperature for j in batch],
-                                         dtype=torch.float32, device=prompts.device)
+        st.temp[slots] = temps
         st.plen[slots] = plen
         st.ppad[slots] = P
         st.fcol[slots] = P
-        st.born[slots] = self.ring_n
+        st.born[slots] = born
         st.tokens[slots] = self.cfg.eot
         for t in (st.n_sampled, st.last, st.penult, st.last_ts, st.sum_lp):
             t[slots] = 0
@@ -267,33 +310,45 @@ class SlotPool:
 
     def step(self) -> list[_StreamJob]:
         """One pool-wide decode step; returns the jobs that finished."""
-        finished = D.pool_step(self.model, self.cfg, self.suppress, self.state,
-                               self.engine._rng, hot=bool(self._hot), ring_n=self.ring_n)
+        meta = self._step_meta(bool(self._hot), self.ring_n)
         self.step_calls += 1
         self.total_steps += 1
         self.occupancy_sum += len(self.jobs)
-        return self._retire(finished)
+        return self._retire(meta)
+
+    def _device_step(self, hot: bool, ring_n: int) -> torch.Tensor:
+        return D.pool_step(self.model, self.cfg, self.suppress, self.state, self.rng, hot=hot,
+                           ring_n=ring_n)
+
+    @collective("pool")
+    def _step_meta(self, hot: bool, ring_n: int) -> np.ndarray:
+        """One step of this replica's rows, then the packed per-row results
+        of every row of the pool (`_meta`, gathered over dp): one
+        device-to-host copy per step."""
+        meta = torch.cat(self._meta(self._device_step(hot, ring_n)), dim=1).cpu()
+        if self.mesh is not None:
+            meta = self.mesh.all_gather(meta, dim=0, axis="dp")
+        return meta.numpy()
 
     def _meta(self, finished: torch.Tensor) -> list[torch.Tensor]:
-        """What retirement reads, per slot: finished, n_sampled, the
+        """What retirement reads, a row per slot: finished, n_sampled, the
         log-probability sum and the no-speech probability (f32 bits in
-        int32), then the tokens (S, max_new)."""
+        int32), then the tokens (max_new columns)."""
         st = self.state
-        return [finished.int(), st.n_sampled.int(), st.sum_lp.view(torch.int32),
-                st.ns_prob.view(torch.int32), st.tokens.int().reshape(-1)]
+        return [finished.int()[:, None], st.n_sampled.int()[:, None],
+                st.sum_lp.view(torch.int32)[:, None], st.ns_prob.view(torch.int32)[:, None],
+                st.tokens.int()]
 
-    def _retire(self, finished: torch.Tensor) -> list[_StreamJob]:
+    def _retire(self, meta: np.ndarray) -> list[_StreamJob]:
         """Complete the futures of the slots that finished at this step and
-        recycle the slots. One packed device-to-host copy per step."""
-        S = self.S
-        meta = torch.cat(self._meta(finished)).cpu().numpy()
-        fin = meta[:S] != 0
+        recycle the slots, from the packed results (`_step_meta`)."""
+        fin = meta[:, 0] != 0
         if not fin.any():
             return []
-        n_sampled = meta[S:2 * S]
-        sum_lp = meta[2 * S:3 * S].view(np.float32)
-        ns_prob = meta[3 * S:4 * S].view(np.float32)
-        tokens = meta[4 * S:].reshape(S, self.max_new)
+        n_sampled = meta[:, 1]
+        sum_lp = meta[:, 2].view(np.float32)
+        ns_prob = meta[:, 3].view(np.float32)
+        tokens = meta[:, 4:]
         done: list[_StreamJob] = []
         for slot in np.flatnonzero(fin).tolist():
             job = self.jobs.pop(slot, None)
@@ -330,18 +385,13 @@ class StreamingDecodeServer:
     def __init__(self, engine, n_slots: int = 16, t_mel: int = 3000,
                  max_new: int = 128, int8_kv: bool = False, self_int8: bool = False,
                  max_prompt: int = 16, mesh=None, beam_size: int = 1):
-        if mesh is not None:
-            raise _not_ported("a sharded slot pool", _MULTI)
+        if mesh is not engine.mesh:
+            raise ValueError("a sharded pool needs the engine sharded on its mesh "
+                             "(engine.shard(mesh) before the server)")
         self.engine = engine
-        if beam_size and beam_size > 1:
-            from speaksense_tpu_torch.runtime.beam_slots import BeamSlotPool
-
-            self.pool = BeamSlotPool(engine, n_slots, t_mel, max_new, beam_size=beam_size,
+        self.pool = engine._new_pool(beam_size, n_slots=n_slots, t_mel=t_mel, max_new=max_new,
                                      max_prompt=max_prompt, int8_kv=int8_kv,
                                      self_int8=self_int8)
-        else:
-            self.pool = SlotPool(engine, n_slots, t_mel, max_new, max_prompt=max_prompt,
-                                 int8_kv=int8_kv, self_int8=self_int8)
         self._queue: "queue.Queue[_StreamJob]" = queue.Queue()
         self._stop = threading.Event()
         # the fatal exception once the pool could not be rebuilt: new

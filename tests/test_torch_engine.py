@@ -393,7 +393,9 @@ assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
         "speaksense_tpu_torch.serving.grpc_server", "speaksense_tpu_torch.serving.pb.asr_pb2",
         "speaksense_tpu_torch.registry.etcd", "speaksense_tpu_torch.utils.http",
         "speaksense_tpu_torch.utils.timeutil",
-        "speaksense_tpu_torch.utils.logging"} <= set(names), names
+        "speaksense_tpu_torch.utils.logging", "speaksense_tpu_torch.parallel.mesh",
+        "speaksense_tpu_torch.parallel.multihost", "speaksense_tpu_torch.parallel.workers",
+        "speaksense_tpu_torch.native.build", "speaksense_tpu_torch.native.loader"} <= set(names), names
 
 from speaksense_tpu_torch.asr import AsrParams
 
@@ -449,8 +451,9 @@ print("ok")
 
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port imports, the beam search, beam pool,
-    alignment and host-DSP modules and the serving stack (task queue,
-    stores, auth, REST, gRPC, registry) included, and a ggml checkpoint loads
+    alignment and host-DSP modules, the serving stack (task queue, stores,
+    auth, REST, gRPC, registry), multi-GPU serving (`parallel/`) and the
+    native dequant (`native/`) included, and a ggml checkpoint loads
     through `build_engine(config)` and serves a pooled StreamSession with
     device denoise end to end (ingest, settle, finish), a VAD-segmented
     call with word timestamps, then the session through a beam pool,
@@ -465,3 +468,18 @@ def test_port_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     assert (tmp_path / "cache" / "tiny.cache.npz").is_file()
+
+
+def test_profile_trace_writes_a_trace(engines, tmp_path):
+    """`WhisperEngine.profile_trace(log_dir)`, the JAX engine's: a
+    torch.profiler trace of the calls inside, written to log_dir."""
+    _, teng = engines
+    with teng.profile_trace(str(tmp_path / "trace")):
+        teng.detect_language(np.zeros(16000, np.float32))
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    import json
+
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("detect_language" in e.get("name", "") or "aten::" in e.get("name", "")
+               for e in events)

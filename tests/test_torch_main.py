@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import speaksense_tpu.main as JM
 import speaksense_tpu_torch.main as TM
@@ -72,14 +73,20 @@ def test_main_flags_match_jax(flags, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("how", ["tp", "dp", "coordinator"])
 def test_multi_gpu_serving_is_refused(how, monkeypatch, tmp_path):
-    """--tp/--dp above 1 or a coordinator raise; nothing serves on one card."""
+    """Multi-GPU serving is ported; what it cannot serve is refused before
+    anything starts: --tp/--dp above the local cards (none here), as the
+    JAX server refuses them, and a coordinator without this host's
+    SPEAKSENSE_PROCESS_ID."""
     monkeypatch.chdir(tmp_path)
-    argv = ["--fake-engine"] + {"tp": ["--tp", "2"], "dp": ["--dp", "2"],
-                                "coordinator": []}[how]
+    argv = {"tp": ["--tp", "2"], "dp": ["--dp", "2"], "coordinator": []}[how]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     if how == "coordinator":
         monkeypatch.setenv("SPEAKSENSE_COORDINATOR", "10.0.0.1:1234")
+        monkeypatch.setenv("SPEAKSENSE_NUM_PROCESSES", "2")
+        monkeypatch.delenv("SPEAKSENSE_PROCESS_ID", raising=False)
     monkeypatch.setattr(TM.logsetup, "init", lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    match = "SPEAKSENSE_PROCESS_ID" if how == "coordinator" else "exceeds 1 local devices"
+    with pytest.raises(ValueError, match=match):
         TM.main(argv)
     assert not (tmp_path / "asr_data").exists()
 

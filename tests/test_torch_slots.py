@@ -303,10 +303,21 @@ def test_unrecoverable_failure_makes_the_server_dead(teng):
         server.stop()
 
 
-@pytest.mark.parametrize("kwargs, match", [(dict(mesh=object()), "multi-GPU")])
-def test_options_not_ported_raise(teng, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        StreamingDecodeServer(teng, n_slots=2, t_mel=512, max_new=6, **kwargs)
+@pytest.mark.parametrize("kwargs, match", [(dict(dp=2), "multi-GPU")])
+def test_options_not_ported_raise(np_params, kwargs, match):
+    """The sharded pool is ported: like the JAX pool, it refuses a slot
+    count whose S+1 rows do not divide dp (enable_slot_serving rounds it),
+    and a server's mesh must be its engine's."""
+    from speaksense_tpu_torch.parallel import make_mesh
+
+    eng = TEngine.from_jax_params(np_params, TDIMS, Tokenizer.synthetic(DIMS.n_vocab),
+                                  config=EngineConfig(**NEVER), device="cpu")
+    with pytest.raises(ValueError, match="engine sharded"):
+        StreamingDecodeServer(eng, n_slots=2, t_mel=512, max_new=6,
+                              mesh=make_mesh(kwargs["dp"], tp=1))
+    eng.shard(make_mesh(kwargs["dp"], tp=1))   # a layout mesh: tp = 1 keeps every weight
+    with pytest.raises(ValueError, match=match):
+        StreamingDecodeServer(eng, n_slots=2, t_mel=512, max_new=6, mesh=eng.mesh)
 
 
 @pytest.mark.parametrize("kwargs, pages", [
