@@ -4,14 +4,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --phase kernel    # or main, stream, grad, words, serve, multi,
-                                            # beam, ckpt
+                                            # beam, ckpt, bench
 
 It first compiles the hand-written CUDA kernels from the sources in the
 tree, then runs its phases; main, stream, grad, words and serve share one
-set of large-v3-width random weights:
+set of large-v3-width random weights, whose decoder (like the beam
+phase's) is cut to DECODER_LAYERS of its 32 layers:
   kernel  hold each kernel against its plain PyTorch version on the card at
-          the shapes of the main paths (30 s windows and 5 s slot
-          admissions), time both and the one PyTorch call that computes the
+          the shapes of the main paths (30 s windows at B = 8 and at the
+          bench's B = 64, contiguous and as strided views of the fused q/k/v
+          projection, and 5 s slot admissions), time both and the one PyTorch call that computes the
           same function (`scaled_dot_product_attention`, a yardstick never
           on the path) with CUDA events, and print each shape's bound; the
           forward, and the two backward kernels behind its autograd
@@ -70,10 +72,13 @@ set of large-v3-width random weights:
           ranks sharing it over gloo (the output says which): the encoder
           states and first-step logits (relative L2, bounds stated), one
           30 s greedy window and 8 stream chunks through the sharded pool
-          (token agreement printed), the all-reduces of a pool step
-          (`torch.profiler`), and the forward kernel at 10 heads, (8, 10,
-          1500, 64) and (8, 10, 256, 64), against its plain version beside
-          (8, 20, 1500, 64);
+          (token agreement printed), the same 8 chunks admitted as one
+          batch to both pools and stepped in lockstep (every token
+          compared; where a chunk's tokens part, each step before agrees
+          within the logits' bound and the two tokens are a near tie),
+          the all-reduces of a pool step (`torch.profiler`), and the
+          forward kernel at 10 heads, (8, 10, 1500, 64) and (8, 10, 256,
+          64), against its plain version beside (8, 20, 1500, 64);
   beam    on an engine with beam_size 5 (BASELINE config 4: 64 streams,
           beam = 5): 2 concurrent 30 s requests through the window beam
           search, 64 session threads through the 64-slot K = 5 beam pool
@@ -95,7 +100,19 @@ set of large-v3-width random weights:
           each, and of as many layers of the f16 file, to the parameters
           through the native dequant and through numpy (one process per
           route: seconds, the dequant's share, peak host RSS, every
-          parameter equal).
+          parameter equal); and hold the port at f32 (TF32 off, the plain
+          attention) on the 4 + 4-layer file against the JAX package's
+          fixture `tests/golden/large_v3_f32.json` (encoder rows and norm,
+          the first step's top-20 logits, 24 argmax tokens);
+  bench   the port's measurement tools in process at large-v3 width and
+          depth (`speaksense_tpu_torch/tools/`): the bench's headline window
+          at B = 64 and 200 tokens over 3 runs, beam, sessions, serve
+          through the in-process driver and batch (BENCH_RUNS: the cuts),
+          the slot microbench, the decode microbench's full and ring
+          variants and the step probe; each must end in its JSON line, the
+          window's tokens be the same on every run and each encode launch
+          the flash kernel exactly 32 times. The sidecars go to
+          chiprun_out/bench/.
 
 The script imports nothing of jax or of the JAX package, and checks that no
 such module was loaded. Any failure raises and the script exits non-zero.
@@ -149,9 +166,9 @@ def phase_kernel(card: str) -> dict:
     assert not F.warp_specialised(FIRST_DESIGN_TILE) and FIRST_DESIGN_TILE in F.FWD_TILES
     first = F.TileConfig(fwd=FIRST_DESIGN_TILE)
     # these shapes cross every edge of a 192-row CTA, a 64-row warpgroup and
-    # a 64-key tile
-    cases = [(8, 20, 1500, 64), (1, 2, 200, 64), (2, 3, 77, 64), (1, 1, 1, 64),
-             (2, 4, 64, 64), (1, 2, 256, 64), (1, 2, 1536, 64)]
+    # a 64-key tile; (64, 20, 1500, 64) is the bench's headline window batch
+    cases = [(8, 20, 1500, 64), (64, 20, 1500, 64), (1, 2, 200, 64), (2, 3, 77, 64),
+             (1, 1, 1, 64), (2, 4, 64, 64), (1, 2, 256, 64), (1, 2, 1536, 64)]
     for shape in cases:
         q, k, v = rand(*shape), rand(*shape), rand(*shape)
         out = F.flash_attention_full(q, k, v)
@@ -164,18 +181,22 @@ def phase_kernel(card: str) -> dict:
               f"{first_err:.3e} (bound {FLASH_ATOL})")
         assert err <= FLASH_ATOL and first_err <= FLASH_ATOL, (shape, err, first_err)
         worst = max(worst, err)
-    # strided views of a fused (B, T, 3*d) projection, as the encoder passes them
-    B, T, H = 2, 300, 20
+    # strided views of a fused (B, T, 3*d) projection, as the encoder passes
+    # them (B = 64: the bench's headline window batch)
+    H = 20
     d = H * 64
-    qkv = rand(B, T, 3 * d)
-    q, k, v = (qkv[..., i * d:(i + 1) * d].view(B, T, H, 64).transpose(1, 2) for i in range(3))
-    out = F.flash_attention_full(q, k, v)
-    ref = F.flash_attention_ref(q, k, v)
-    err = (out.float() - ref.float()).abs().max().item()
-    print(f"kernel flash_attn_fwd strided fused-qkv view {(B, H, T, 64)}: "
-          f"max_abs_err {err:.3e} (bound {FLASH_ATOL})")
-    assert err <= FLASH_ATOL, err
-    worst = max(worst, err)
+    for B, T in ((2, 300), (64, 1500)):
+        qkv = rand(B, T, 3 * d)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].view(B, T, H, 64).transpose(1, 2)
+                   for i in range(3))
+        out = F.flash_attention_full(q, k, v)
+        ref = F.flash_attention_ref(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        print(f"kernel flash_attn_fwd strided fused-qkv view {(B, H, T, 64)}: "
+              f"max_abs_err {err:.3e} (bound {FLASH_ATOL})")
+        assert err <= FLASH_ATOL, err
+        worst = max(worst, err)
+        del qkv, q, k, v, out, ref
 
     # 30 s windows (the record's times) and the slot pool's admissions of
     # 1 and 8 windows of 5.12 s (t = 256)
@@ -511,6 +532,12 @@ def _transcribe_concurrently(engine, audios):
 
 
 MAIN_DECODE_LEN = 48
+# decoder layers of the engines that the main, stream, grad, words, serve
+# and beam phases build (32 in large-v3; the encoder and every width stay
+# large-v3's): random weights climb every rung of the fallback ladders to
+# the token cap, one rung after another, and those decodes took most of
+# the script's time; the bench phase decodes at full depth
+DECODER_LAYERS = 8
 
 
 def phase_main(card: str, engine, n_requests: int = 4) -> int:
@@ -921,7 +948,7 @@ def _beam_serving(card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = build_engine(config, model="large-v3", device="cuda", seed=0, max_wait_ms=50.0,
-                          slot_serving=True)
+                          slot_serving=True, decoder_layers=DECODER_LAYERS)
     torch.cuda.synchronize()
     inner = engine.engine
     server = inner._slot_server
@@ -945,7 +972,8 @@ def _beam_serving(card: str) -> int:
                       cross=_nbytes(pages.cross_k, pages.cross_v, pages.cross_ks, pages.cross_vs),
                       anc=_nbytes(pool.state.anc, pool.state.anc_ring))
     step_bytes = weights + vocab + sum(page_bytes.values())
-    print(f"beam: engine with beam_size {BEAM_SIZE}, large-v3 random weights and a {pool.S}-slot "
+    print(f"beam: engine with beam_size {BEAM_SIZE}, large-v3 random weights ({dims.n_text_layer} "
+          f"of 32 decoder layers) and a {pool.S}-slot "
           f"K = {pool.K} beam pool in {time.perf_counter() - t0:.1f} s; pool pages: self-KV "
           f"{page_bytes['self'] / 1e9:.3f} GB int8 ({pool.S * pool.K} rows x {pool.t_text} "
           f"columns x {dims.n_text_layer} layers, K and V), per-token scales "
@@ -1873,12 +1901,21 @@ def phase_serve(card: str, engine) -> int:
 # the sharded engine against the unsharded one on the same bf16 weights:
 # every sum over tp is taken in another order than the one product it
 # replaces, and the difference grows through 32 layers (the decoder's
-# activations are bf16). Set from the phase's readings on an H100 (PERF.md):
-# encoder states 1.955e-3, first-step logits 1.435e-2, each bound 3.5-5
-# times that. They are not shown to catch a row-parallel layer that rounds
-# twice; tests/test_torch_parallel.py catches that on the CPU
-MULTI_ENC_RTOL = 1e-2
-MULTI_LOGITS_RTOL = 5e-2
+# activations are bf16). Readings on an H100 (PERF.md, findings; the same
+# over gloo on one card and over NCCL on two): encoder states 1.955e-3,
+# first-step logits 1.435e-2; with the partials of every row-parallel layer
+# rounded to bf16 before the all-reduce (rounding twice, run as a mutation
+# on the card) 2.969e-3 and 1.531e-2. Each bound lies between the two
+MULTI_ENC_RTOL = 2.4e-3
+MULTI_LOGITS_RTOL = 1.48e-2
+# each lockstep pool step's logits against unsharded, up to a chunk's
+# first differing token (1.508e-2 clean, 1.573e-2 mutated): the pages carry
+# every earlier step's difference, so this shows that the steps agree up
+# to a flip; the first-step bound above guards the rounding
+MULTI_STEP_LOGITS_RTOL = 5e-2
+# new tokens a chunk of the lockstep pools (the served pools take 96): gloo
+# on one card makes each sharded step 0.2 s
+MULTI_POOL_TOKENS = 48
 
 
 def _rel_l2(a, b) -> float:
@@ -1925,6 +1962,53 @@ def _allreduce_per_step(pool, n_steps: int) -> dict:
         step_ms=plain_ms, profiled_step_ms=1e3 * wall / n_steps)
 
 
+def _lockstep_chunks(pools: list, jobs: list) -> dict:
+    """Admit jobs[i] to pools[i] (the tp = 2 pool, then the unsharded one)
+    in one admission each and step both until every job is done. For
+    each chunk: its tokens in both, and up to its first token that differs
+    the relative L2 of each step's logits (those the step samples from);
+    at that token, the margin by which each pool preferred its own token
+    over the other's. A pool's tokens that part from the other's where
+    both margins are within the logits' difference, after steps that
+    agreed within MULTI_STEP_LOGITS_RTOL, are a near tie flipped by the
+    sharded sums' rounding, not a fault of the sharded step."""
+    for pool, js in zip(pools, jobs):
+        assert pool.admit_many(list(js)) == len(js) and pool.admit_calls == 1
+    seen: tuple = ([], [])
+    while any(p.jobs for p in pools):
+        for pool, logits in zip(pools, seen):
+            logits.append(pool.state.last_logits[:len(jobs[0])].clone())
+            pool.step()
+    out = {"equal": 0, "tokens": 0, "worst_rel_l2": 0.0, "flips": []}
+    for i, (a, b) in enumerate(zip(*jobs)):
+        ra, rb = a.future.result(), b.future.result()
+        assert a.slot == b.slot
+        # the tokens up to the shorter decode's end (EOT is written too)
+        n = min(len(ra["tokens"]), min(ra["n_sampled"], rb["n_sampled"]) + 1)
+        out["tokens"] += ra["n_sampled"]
+        k = next((j for j in range(n) if ra["tokens"][j] != rb["tokens"][j]), None)
+        upto = n if k is None else k + 1
+        rel = [_rel_l2(seen[0][j][a.slot], seen[1][j][a.slot]) for j in range(upto)]
+        out["worst_rel_l2"] = max(out["worst_rel_l2"], *rel)
+        assert max(rel) <= MULTI_STEP_LOGITS_RTOL, (i, rel)
+        if k is None:
+            assert ra["n_sampled"] == rb["n_sampled"], (i, ra["n_sampled"], rb["n_sampled"])
+            out["equal"] += 1
+            continue
+        ls, lp = seen[0][k][a.slot], seen[1][k][a.slot]
+        ts, tp = int(ra["tokens"][k]), int(rb["tokens"][k])
+        gap = float((ls - lp).abs().max())
+        m_s, m_p = float(ls[ts] - ls[tp]), float(lp[tp] - lp[ts])
+        out["flips"].append(f"chunk {i} token {k}: margins {m_s:.4f} (tp = 2), {m_p:.4f} "
+                            f"(unsharded), largest logit difference {gap:.4f}, relative L2 "
+                            f"{rel[-1]:.3e}")
+        assert 0 <= m_s <= gap and 0 <= m_p <= gap, out["flips"][-1]
+    flips = "; ".join(out["flips"]) or "no token differs"
+    out["text"] = (f"each step's logits within {out['worst_rel_l2']:.3e} relative L2 (bound "
+                   f"{MULTI_STEP_LOGITS_RTOL}) up to a chunk's first differing token; {flips}")
+    return out
+
+
 def _planted_fault(*args, **kwargs):
     raise RuntimeError("a fault planted on this rank")
 
@@ -1967,7 +2051,7 @@ def phase_multi(card: str) -> dict:
     from speaksense_tpu_torch.tools import microbench_encattn as MB
 
     config = Config()
-    # greedy windows of 48 new tokens, 96 per pool chunk, the ladder off
+    # greedy windows of 48 new tokens, 96 per served pool chunk, the ladder off
     config.engine = EngineConfig(max_decode_len=96, **NEUTRAL)
     spec = M.worker_spec(config, 2, 1, device="cuda", model="large-v3", seed=0)
     spec.build = _build_with_follower_fault
@@ -1986,7 +2070,8 @@ def phase_multi(card: str) -> dict:
         mesh = join_mesh(spec, 0)
         watch_workers(mesh, procs)
         sharded = M.build_engine(config, model="large-v3", device=mesh.device, seed=0,
-                                 max_wait_ms=50.0, slot_serving=True, slots=8, mesh=mesh)
+                                 max_wait_ms=50.0, slot_serving=True, slots=8,
+                                 mesh=mesh)
         plain = M.build_engine(config, model="large-v3", device="cuda:0", seed=0,
                                max_wait_ms=50.0, slot_serving=True, slots=8)
         torch.cuda.synchronize()
@@ -2092,12 +2177,23 @@ def phase_multi(card: str) -> dict:
                   f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), the kernel at {100 * bound_ms / ms:.1f}% of it [{card}]")
 
-        # the pool alone, its server stopped: the collectives of a step
+        # the pools alone, their servers stopped: the 8 chunks admitted as
+        # one batch on both engines, then stepped in lockstep, every token
+        # compared (the served pools above form their admission batches
+        # by timing)
         sharded.engine.disable_slot_serving()
-        pool = s_eng._new_pool(1, n_slots=8, t_mel=512, max_new=96, max_prompt=16,
-                               int8_kv=False, self_int8=False)
+        plain.engine.disable_slot_serving()
+        pools = [e._new_pool(1, n_slots=8, t_mel=512, max_new=MULTI_POOL_TOKENS, max_prompt=16,
+                             int8_kv=False, self_int8=False) for e in (s_eng, p_eng)]
         prompt = list(s_eng.tokenizer.sot_sequence("en"))
         pcm = [np.pad(c, (0, 512 * 160 - c.size)) for c in chunks]
+        batch = _lockstep_chunks(pools, [[_StreamJob(c, prompt, is_audio=True) for c in pcm]
+                                         for _ in pools])
+        print(f"multi: the 8 chunks admitted as one batch on both engines (one admission "
+              f"each), stepped in lockstep: tokens equal in {batch['equal']}/8 chunks "
+              f"({batch['tokens']} tokens); {batch['text']} [{card}]")
+        p_eng._drop_pool()
+        pool = pools[0]
         assert pool.admit_many([_StreamJob(c, prompt, is_audio=True) for c in pcm]) == 8
         for _ in range(2):
             pool.step()
@@ -2136,67 +2232,6 @@ def phase_multi(card: str) -> dict:
     return {"launches": launches, "tp2_rows": rows}
 
 
-def _seeded_ggml_tensors(dims, seed: int):
-    """(name, f32 array) of every tensor of a whisper checkpoint of `dims`,
-    in whisper.cpp's names, order and (out, in) layout, each drawn from its
-    own seeded generator so the set can be drawn again for the check:
-    weights at 1/sqrt(fan-in), embeddings at 0.02, layer-norm gains near 1
-    and small biases."""
-    import numpy as np
-
-    d, dt = dims.n_audio_state, dims.n_text_state
-    specs = [("encoder.conv1.weight", (d, dims.n_mels, 3)), ("encoder.conv1.bias", (d,)),
-             ("encoder.conv2.weight", (d, d, 3)), ("encoder.conv2.bias", (d,)),
-             ("encoder.positional_embedding", (dims.n_audio_ctx, d))]
-
-    def block(pre, width, cross):
-        out = [(f"{pre}.attn_ln.weight", (width,)), (f"{pre}.attn_ln.bias", (width,))]
-        for attn in ("attn", "cross_attn") if cross else ("attn",):
-            if attn == "cross_attn":
-                out += [(f"{pre}.cross_attn_ln.weight", (width,)),
-                        (f"{pre}.cross_attn_ln.bias", (width,))]
-            for proj in ("query", "key", "value", "out"):
-                out.append((f"{pre}.{attn}.{proj}.weight", (width, width)))
-                if proj != "key":
-                    out.append((f"{pre}.{attn}.{proj}.bias", (width,)))
-        return out + [(f"{pre}.mlp_ln.weight", (width,)), (f"{pre}.mlp_ln.bias", (width,)),
-                      (f"{pre}.mlp.0.weight", (4 * width, width)), (f"{pre}.mlp.0.bias", (4 * width,)),
-                      (f"{pre}.mlp.2.weight", (width, 4 * width)), (f"{pre}.mlp.2.bias", (width,))]
-
-    for i in range(dims.n_audio_layer):
-        specs += block(f"encoder.blocks.{i}", d, cross=False)
-    specs += [("encoder.ln_post.weight", (d,)), ("encoder.ln_post.bias", (d,)),
-              ("decoder.token_embedding.weight", (dims.n_vocab, dt)),
-              ("decoder.positional_embedding", (dims.n_text_ctx, dt))]
-    for i in range(dims.n_text_layer):
-        specs += block(f"decoder.blocks.{i}", dt, cross=True)
-    specs += [("decoder.ln.weight", (dt,)), ("decoder.ln.bias", (dt,))]
-
-    for idx, (name, shape) in enumerate(specs):
-        x = np.random.default_rng([seed, idx]).standard_normal(shape, dtype=np.float32)
-        if "embedding" in name:
-            x *= 0.02
-        elif len(shape) > 1:
-            x *= 1.0 / np.sqrt(np.prod(shape[1:]))
-        elif "ln" in name.split(".")[-2] and name.endswith("weight"):
-            x = 1.0 + 0.02 * x
-        else:
-            x *= 0.02
-        yield name, x
-
-
-class _SeededTensors:
-    """The tensors of `_seeded_ggml_tensors` as `write_ggml` reads them
-    (`.items()`), drawn one at a time so the full-width set never sits in
-    host memory."""
-
-    def __init__(self, dims, seed: int):
-        self.dims, self.seed = dims, seed
-
-    def items(self):
-        return _seeded_ggml_tensors(self.dims, self.seed)
-
-
 def _port_param(model, name: str):
     """The port parameter (or the slice of the fused q/k/v projection) that
     holds the ggml tensor `name`."""
@@ -2228,8 +2263,10 @@ def _expected_params(dims, seed: int, dtype) -> dict:
     import numpy as np
     import torch
 
+    from speaksense_tpu_torch.tools.golden import seeded_ggml_tensors
+
     out = {}
-    for name, src in _seeded_ggml_tensors(dims, seed):
+    for name, src in seeded_ggml_tensors(dims, seed):
         if src.ndim > 1 and src.size % 32 == 0:
             src = src.astype(np.float16).astype(np.float32)
         out[name] = torch.from_numpy(src).to(dtype if src.ndim > 1 else torch.float32)
@@ -2336,15 +2373,15 @@ def _ggml_load_child(path: str, route: str, layers: str) -> None:
 
 def _quant_loads(card: str, tmp: Path, f16_path: Path, seed: int, layers: int) -> None:
     """Write q8_0 and q5_0 files of large-v3 width cut to `layers` encoder
-    and decoder layers from the seeded weights (`write_ggml`), and time the
+    and decoder layers from the seeded weights (`write_seeded`), and time the
     cold load of each and of the f16 file's first `layers` layers in a
     process of its own through both dequant routes (`_ggml_load_child`):
     seconds, the dequant's share, peak host RSS, and every parameter equal
     between the routes."""
-    from speaksense_tpu_torch.audio import mel as MEL
-    from speaksense_tpu_torch.ckpt.ggml import Q5_0, Q8_0, GgmlModel, write_ggml
+    from speaksense_tpu_torch.ckpt.ggml import Q5_0, Q8_0
     from speaksense_tpu_torch.models import whisper as W
     from speaksense_tpu_torch.native import native_available
+    from speaksense_tpu_torch.tools.golden import write_seeded
 
     assert native_available(), "g++ or the native build is missing"
     dims = dataclasses.replace(W.MODEL_DIMS["large-v3"], n_audio_layer=layers,
@@ -2353,9 +2390,7 @@ def _quant_loads(card: str, tmp: Path, f16_path: Path, seed: int, layers: int) -
     for name, ftype in (("q8_0", Q8_0), ("q5_0", Q5_0)):
         path = tmp / f"ggml-large-v3-{layers}l-{name}.bin"
         t0 = time.perf_counter()
-        write_ggml(GgmlModel(dims=dims, ftype=ftype, filters=MEL.mel_filter_bank(dims.n_mels),
-                             vocab=[b"<%d>" % i for i in range(50257)],
-                             tensors=_SeededTensors(dims, seed)), str(path), ftype=ftype)
+        write_seeded(path, dims, seed, ftype)
         print(f"ckpt: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB, {name}) in "
               f"{time.perf_counter() - t0:.1f} s")
         files.append((name, path))
@@ -2382,6 +2417,52 @@ def _quant_loads(card: str, tmp: Path, f16_path: Path, seed: int, layers: int) -
               f"host RSS {ref['peak_rss_gib']:.2f} GiB) [{card}]")
 
 
+# the large-v3 parity fixture, made by the JAX package at f32 on the CPU
+# from the CLI_LAYERS-layer file of seed 0 and a seeded mel
+# (tests/test_torch_golden.py regenerates it; bounds in tools/golden.py)
+GOLDEN = REPO / "tests" / "golden" / "large_v3_f32.json"
+
+
+def _golden_on_card(card: str, path: Path) -> None:
+    """The port on the card against the JAX package's large-v3-width
+    fixture (GOLDEN), on the same CLI_LAYERS-layer file: f32 weights, TF32
+    off, the plain attention in the encoder (the flash kernel is bf16; the
+    main phase holds it against the plain attention)."""
+    import torch
+
+    from speaksense_tpu_torch.asr.engine import WhisperEngine
+    from speaksense_tpu_torch.config import EngineConfig
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.tools import golden as G
+
+    want = json.loads(GOLDEN.read_text())
+    model = WhisperEngine.from_ggml(str(path), config=EngineConfig(compute_dtype="float32"),
+                                    use_cache=False, device="cuda").model
+    assert dataclasses.asdict(model.dims) == want["checkpoint"]["dims"], model.dims
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    W.flash_attention_full = F.flash_attention_ref
+    try:
+        got = G.readings(model, torch.from_numpy(G.seeded_mel(128, want["mel_seed"])).cuda(),
+                         torch.tensor([want["prompt"]], device="cuda"), want["n_tokens"],
+                         want["top20_ids"])
+    finally:
+        W.flash_attention_full = F.flash_attention_full
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del model
+    _free_device()
+    errs = G.errors(got, want)
+    print(f"ckpt: large-v3 parity against the JAX package ({GOLDEN.name}: {CLI_LAYERS} + "
+          f"{CLI_LAYERS} layers at large-v3 width, f32, TF32 off): encoder rows relative L2 "
+          f"{errs['enc_rows']:.3e}, norm {errs['enc_norm']:.3e} (bound {G.ENC_RTOL}), "
+          f"first-step logits at the top 20 {errs['logits']:.3e} (bound {G.LOGITS_RTOL}), "
+          f"top-20 ids {'equal' if got['top20_ids'] == want['top20_ids'] else 'differ'}, "
+          f"{want['n_tokens']} tokens {'equal' if errs['tokens_equal'] else 'DIFFER'} [{card}]")
+    assert (errs["enc_rows"] <= G.ENC_RTOL and errs["enc_norm"] <= G.ENC_RTOL
+            and errs["logits"] <= G.LOGITS_RTOL and errs["tokens_equal"]), errs
+
+
 # layers of the checkpoint the ckpt phase's CLI transcribes, and of the
 # quantized-load measurement in a whole run (`--load-layers` sets it)
 CLI_LAYERS = 4
@@ -2397,15 +2478,15 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     import numpy as np
     import torch
 
-    from speaksense_tpu_torch.audio import mel as MEL
     from speaksense_tpu_torch.asr.engine import WhisperEngine
     from speaksense_tpu_torch.audio.io import write_wav
     from speaksense_tpu_torch.ckpt import cache as CK
-    from speaksense_tpu_torch.ckpt.ggml import F16, GgmlModel, write_ggml
+    from speaksense_tpu_torch.ckpt.ggml import F16
     from speaksense_tpu_torch.config import Config, EngineConfig
     from speaksense_tpu_torch.main import build_engine
     from speaksense_tpu_torch.models import whisper as W
     from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.tools.golden import write_seeded
 
     dims = W.MODEL_DIMS["large-v3"]
     tmp = Path(tempfile.mkdtemp(prefix="speaksense-ckpt-"))
@@ -2453,10 +2534,7 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     try:
         path = tmp / "ggml-large-v3.bin"
         t0 = time.perf_counter()
-        # the vocab holds the text pieces only; the loader pads the rest
-        write_ggml(GgmlModel(dims=dims, ftype=F16, filters=MEL.mel_filter_bank(dims.n_mels),
-                             vocab=[b"<%d>" % i for i in range(50257)],
-                             tensors=_SeededTensors(dims, seed)), str(path), ftype=F16)
+        write_seeded(path, dims, seed, F16)
         print(f"ckpt: wrote {path.name} ({path.stat().st_size / 1e9:.3f} GB, f16, large-v3 "
               f"width and depth) in {time.perf_counter() - t0:.1f} s")
 
@@ -2522,9 +2600,7 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
         # must find that cache and leave it as it is
         cut = dataclasses.replace(dims, n_audio_layer=CLI_LAYERS, n_text_layer=CLI_LAYERS)
         cli_path = tmp / f"ggml-large-v3-{CLI_LAYERS}l.bin"
-        write_ggml(GgmlModel(dims=cut, ftype=F16, filters=MEL.mel_filter_bank(dims.n_mels),
-                             vocab=[b"<%d>" % i for i in range(50257)],
-                             tensors=_SeededTensors(cut, seed)), str(cli_path), ftype=F16)
+        write_seeded(cli_path, cut, seed, F16)
         WhisperEngine.from_ggml(str(cli_path), config=config.engine, device="cuda")
         _free_device()
         cli_npz = tmp / "asr_data" / "weights_cache" / f"{cli_path.stem}.cache.npz"
@@ -2547,6 +2623,7 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
               f"rc 0 in {cli_s:.1f} s: {len(result['segments'])} segments; "
               f"{out.stderr.strip().splitlines()[-1]} [{card}]")
         assert npz.stat().st_mtime_ns == npz_mtime, "the full file's cache was rewritten"
+        _golden_on_card(card, cli_path)
         print(f"ckpt: cold load {times['cold']:.2f} s, warm load {times['warm']:.2f} s; peak host "
               f"RSS {rss_gib():.2f} GiB [{card}]")
         _quant_loads(card, tmp, path, seed, load_layers)
@@ -2557,13 +2634,102 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     return launches
 
 
+# the bench phase's cuts of the tools' defaults, to fit the script's limit:
+# serve at 24 tokens a chunk (96), 2 chunks a stream (8), one paced chunk
+# (6) and an armed phase of 1 stream (16); sessions over 64 streams of 2
+# chunks (8) at 8 tokens a chunk (96): its ladder is armed, as in the
+# reference, so random weights take every chunk through 5 more rungs of
+# best_of 5 decodes each, one rung after another, and one run (3); batch on
+# 4 files of 60 s (16) with 32 tokens a window and the ladder off
+# (`--batch-fast`), one run (3)
+BENCH_RUNS = (
+    ("window", ["--mode", "window", "--no-e2e"]),
+    ("beam", ["--mode", "beam", "--iters", "1"]),
+    ("sessions", ["--mode", "sessions", "--serve-streams", "64", "--serve-chunks", "2",
+                  "--serve-tokens", "8", "--iters", "1"]),
+    ("serve", ["--mode", "serve", "--serve-driver", "inproc", "--serve-chunks", "2",
+               "--serve-paced-chunks", "1", "--serve-tokens", "24",
+               "--serve-thresh-streams", "1", "--serve-thresh-chunks", "1"]),
+    ("batch", ["--mode", "batch", "--batch-files", "4", "--batch-fast", "--iters", "1"]),
+)
+
+
+def phase_bench(card: str) -> int:
+    """The port's measurement tools in this process at large-v3 width and
+    depth on random bf16 weights (BENCH_RUNS: the headline window at B = 64
+    and 200 tokens over 3 runs, beam, sessions, serve through the
+    in-process driver, batch), then the slot microbench, the decode
+    microbench's `full` and `ring` variants and the step probe. Each mode
+    must end in its short JSON line; the window's tokens must be the same
+    on every run and its encodes launch the flash kernel 32 times each.
+    The sidecars go to chiprun_out/bench/. Returns the flash kernel's
+    launches."""
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.tools import bench as B
+    from speaksense_tpu_torch.tools import microbench_decode as MD
+    from speaksense_tpu_torch.tools import microbench_slots as MS
+    from speaksense_tpu_torch.tools import probe_slots as MP
+
+    out = REPO / "chiprun_out" / "bench"
+    launches0 = F.flash_attention_full.launches
+    for name, argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        sidecar = out / f"smoke_{name}.json"
+        line = B.main(argv + ["--out", str(sidecar)])
+        r = json.loads(sidecar.read_text())
+        assert line["value"] > 0 and line["card"] == card and line["unit"] == "x_realtime", line
+        text = ""
+        if name in ("window", "beam"):
+            prof = r["profile"]
+            busy = ("not measured" if r["busy_share"] is None else
+                    f"{100 * r['busy_share']:.1f}% ({prof['device_busy_ms']:.1f} of "
+                    f"{prof['host_ms']:.1f} ms)")
+            top = "; ".join(f"{k[:60]} {ms:.1f} ms x{n}" for k, ms, n in prof["top_kernels"][:5])
+            text = (f"best {r['best_s']:.3f} s, median {r['median_s']:.3f} s (runs "
+                    f"{', '.join(f'{t:.3f}' for t in r['runs_s'])}), median RTF "
+                    f"{r['median_rtf']:.2f}, device busy {busy}; {prof['launches']} launches a "
+                    f"run; top kernels: {top}")
+            if r.get("spread_note"):
+                text += f"; {r['spread_note']}"
+        if name == "window":
+            assert r["tokens_same"], "the window's tokens changed between runs"
+            # one encode a run: the warm-up, the timed runs and the profiled one
+            assert r["flash_launches"] == 32 * r["flash_runs"], (r["flash_launches"],
+                                                                 r["flash_runs"])
+        if name in ("sessions", "serve"):
+            text = (f"admit_avg_batch {r['admit_avg_batch']:.2f}, avg_occupancy "
+                    f"{r['avg_occupancy']:.1f}, step_calls {r['step_calls']}, admit_calls "
+                    f"{r['admit_calls']}, quality counters {r['quality_counters']}")
+        if name == "serve":
+            text += (f"; firehose runs {', '.join(f'{v:.2f}' for v in r['firehose_runs'])}; paced "
+                     f"chunk latency p50 {r['p50_chunk_latency_s']:.3f} s, p95 "
+                     f"{r['p95_chunk_latency_s']:.3f} s ({r['paced_samples']} samples), mid-load "
+                     f"({r['paced_mid_streams']} streams) p50 {r['p50_chunk_latency_mid_s']:.3f} "
+                     f"s, p95 {r['p95_chunk_latency_mid_s']:.3f} s; armed {r['thresh_real']}")
+        if name == "batch":
+            text = (f"best {r['best_s']:.2f} s, median {r['median_s']:.2f} s; task wall from the "
+                    f"stored timestamps p50 {r['task_wall_stored_s']['p50']:.2f} s, max "
+                    f"{r['task_wall_stored_s']['max']:.2f} s")
+        print(f"bench: {name}: {r['metric']}: {r['value']:.2f}x real time; {text}; "
+              f"{time.perf_counter() - t0:.1f} s with the set-up [{card}]", flush=True)
+    t0 = time.perf_counter()
+    MS.main(["--out", str(out / "smoke_microbench_slots.json")])
+    MD.main(["full", "ring", "--out", str(out / "smoke_microbench_decode.json")])
+    probe = MP.main(["--out", str(out / "smoke_probe_slots.json")])
+    assert probe["device_busy_ms"] is not None and probe["total_bytes"] > 0, probe
+    print(f"bench: microbench_slots, microbench_decode (full, ring) and probe_slots in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return F.flash_attention_full.launches - launches0
+
+
 _BWD_SOURCE = "speaksense_tpu_torch/ops/csrc/flash_attn_bwd.cu"
 _PALLAS_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("kernel", "main", "stream", "grad", "words", "serve", "multi", "beam", "ckpt")
+    all_phases = ("kernel", "main", "stream", "grad", "words", "serve", "multi", "beam", "ckpt",
+                  "bench")
     ap.add_argument("--phase", choices=all_phases + ("all",), default="all")
     ap.add_argument("--load-layers", type=int, default=LOAD_LAYERS,
                     help="layers of the ckpt phase's quantized-load measurement (32: full depth)")
@@ -2633,6 +2799,7 @@ def main() -> int:
         records["flash_attn_fwd"].update(phase_kernel(card))
         for name, fields in phase_kernel_bwd(card).items():
             records[name].update(fields)
+        _free_device()
     lap("build and kernel phase")
     if set(phases) - {"kernel"}:
         for r in records.values():
@@ -2648,15 +2815,17 @@ def main() -> int:
     if set(phases) & {"main", "stream", "grad", "words", "serve"}:
         config = Config()
         # max_new = max_decode_len // 2 = 48 tokens per window on the window
-        # path, where random weights climb the whole ladder; every other
-        # knob (bf16, max_batch_size 8, best_of 5, thresholds, 64 stream
-        # slots of 96 tokens) is the default
+        # path, where random weights climb the whole ladder; 64 stream slots
+        # of 96 tokens; DECODER_LAYERS decoder layers; every other knob
+        # (bf16, max_batch_size 8, best_of 5, thresholds) is the default
         config.engine = EngineConfig(max_decode_len=96)
         t0 = time.perf_counter()
         engine = build_engine(config, model="large-v3", device="cuda", seed=0,
-                              max_wait_ms=50.0, slot_serving=True)
+                              max_wait_ms=50.0, slot_serving=True,
+                              decoder_layers=DECODER_LAYERS)
         torch.cuda.synchronize()
-        print(f"engine: large-v3 random weights and a 64-slot pool on the card in "
+        print(f"engine: large-v3 random weights ({DECODER_LAYERS} of 32 decoder layers) and a "
+              f"64-slot pool on the card in "
               f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               f"[{card}]")
         try:
@@ -2691,6 +2860,10 @@ def main() -> int:
     if "ckpt" in phases:
         count(phase_ckpt(card, load_layers=args.load_layers))
         lap("ckpt phase")
+    if "bench" in phases:
+        count(phase_bench(card))
+        _free_device()
+        lap("bench phase")
     leaked = _loaded(("jax", "jaxlib", "speaksense_tpu") + SERVER_PACKAGES)
     assert not leaked, leaked
     if args.phase == "all":

@@ -203,11 +203,17 @@ class WhisperEngine(AsrEngine):
 
     @classmethod
     def from_random(cls, model: str = "large-v3", config: EngineConfig | None = None,
-                    device="cuda", seed: int = 0) -> "WhisperEngine":
+                    device="cuda", seed: int = 0,
+                    decoder_layers: int | None = None) -> "WhisperEngine":
         """Random-weight engine (no checkpoint needed); the weights are drawn
-        on `device` from a generator seeded with `seed`."""
+        on `device` from a generator seeded with `seed`. `decoder_layers`
+        cuts the decoder's depth (the widths and the encoder stay the
+        model's)."""
         config = config or EngineConfig()
         dims = W.MODEL_DIMS[model]
+        if decoder_layers is not None:
+            dims = dataclasses.replace(dims, n_text_layer=decoder_layers)
+            model = f"{model}-{decoder_layers}dec"
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         m = W.init_random(dims, gen, device=device, dtype=cls._dtype(config))

@@ -46,27 +46,30 @@ log = logging.getLogger("speaksense")
 
 
 def load_engine(config: Config, model: str | None = None, seed: int = 0,
-                device="cuda") -> WhisperEngine:
+                device="cuda", decoder_layers: int | None = None) -> WhisperEngine:
     """The WhisperEngine on `device` over the checkpoint at
     `config.model_path` (ggml file or HF directory), or, when `model` names
     one of `MODEL_DIMS`, over random weights of that model drawn from
-    `seed`. Every rank of a mesh builds its engine with it."""
+    `seed` (its decoder cut to `decoder_layers` when given). Every rank of
+    a mesh builds its engine with it."""
     if model is None:
         return WhisperEngine.from_pretrained(config.model_path, config=config.engine,
                                              device=device)
-    return WhisperEngine.from_random(model, config=config.engine, device=device, seed=seed)
+    return WhisperEngine.from_random(model, config=config.engine, device=device, seed=seed,
+                                     decoder_layers=decoder_layers)
 
 
 def build_engine(config: Config, model: str | None = None, device="cuda", seed: int = 0,
                  max_wait_ms: float = 5.0, slot_serving: bool = False,
                  slots: int | None = None, slot_tokens: int = 96,
-                 slot_prompt: int = 16, mesh=None) -> BatchedEngine:
+                 slot_prompt: int = 16, mesh=None,
+                 decoder_layers: int | None = None) -> BatchedEngine:
     """A window-batching engine over `load_engine(config, model, seed,
-    device)`, sharded on `mesh` (this process leads it) when given.
-    slot_serving routes stream chunks through the token-level slot pool of
-    `slots` slots (default `config.engine.stream_slots`), `slot_tokens` new
-    tokens and `slot_prompt` prompt tokens per chunk."""
-    engine = load_engine(config, model, seed, device)
+    device, decoder_layers)`, sharded on `mesh` (this process leads it)
+    when given. slot_serving routes stream chunks through the token-level
+    slot pool of `slots` slots (default `config.engine.stream_slots`),
+    `slot_tokens` new tokens and `slot_prompt` prompt tokens per chunk."""
+    engine = load_engine(config, model, seed, device, decoder_layers)
     if mesh is not None:
         engine.shard(mesh)
     if slot_serving:

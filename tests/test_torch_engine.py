@@ -395,7 +395,12 @@ assert {"speaksense_tpu_torch.cli", "speaksense_tpu_torch.ckpt.ggml",
         "speaksense_tpu_torch.utils.timeutil",
         "speaksense_tpu_torch.utils.logging", "speaksense_tpu_torch.parallel.mesh",
         "speaksense_tpu_torch.parallel.multihost", "speaksense_tpu_torch.parallel.workers",
-        "speaksense_tpu_torch.native.build", "speaksense_tpu_torch.native.loader"} <= set(names), names
+        "speaksense_tpu_torch.native.build", "speaksense_tpu_torch.native.loader",
+        "speaksense_tpu_torch.tools.bench", "speaksense_tpu_torch.tools.measure",
+        "speaksense_tpu_torch.tools.microbench_slots",
+        "speaksense_tpu_torch.tools.microbench_decode", "speaksense_tpu_torch.tools.probe_slots",
+        "speaksense_tpu_torch.tools.wer_check",
+        "speaksense_tpu_torch.tools.golden"} <= set(names), names
 
 from speaksense_tpu_torch.asr import AsrParams
 
@@ -452,8 +457,9 @@ print("ok")
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port imports, the beam search, beam pool,
     alignment and host-DSP modules, the serving stack (task queue, stores,
-    auth, REST, gRPC, registry), multi-GPU serving (`parallel/`) and the
-    native dequant (`native/`) included, and a ggml checkpoint loads
+    auth, REST, gRPC, registry), multi-GPU serving (`parallel/`), the
+    native dequant (`native/`) and the measurement tools (`tools/`)
+    included, and a ggml checkpoint loads
     through `build_engine(config)` and serves a pooled StreamSession with
     device denoise end to end (ingest, settle, finish), a VAD-segmented
     call with word timestamps, then the session through a beam pool,
