@@ -103,7 +103,15 @@ phase's) is cut to DECODER_LAYERS of its 32 layers:
           parameter equal); and hold the port at f32 (TF32 off, the plain
           attention) on the 4 + 4-layer file against the JAX package's
           fixture `tests/golden/large_v3_f32.json` (encoder rows and norm,
-          the first step's top-20 logits, 24 argmax tokens);
+          the first step's top-20 logits, 24 argmax tokens), and on the
+          full 32 + 32 file against `tests/golden/large_v3_32l_f32.json`:
+          the same window readings with a projection of the whole encoder
+          output, and the greedy and beam = 5 (int8 pages) pools on three
+          seeded 5 s s16 chunks with the denoise (tokens, mean
+          log-probability, no-speech probability); the served bf16 engine
+          (the flash kernel in all 32 encoder layers at T = 1500 and t =
+          256) is held against the same fixture within bounds set between a
+          clean reading and planted defects';
   bench   the port's measurement tools in process at large-v3 width and
           depth (`speaksense_tpu_torch/tools/`): the bench's headline window
           at B = 64 and 200 tokens over 3 runs, beam, sessions, serve
@@ -2423,11 +2431,11 @@ def _quant_loads(card: str, tmp: Path, f16_path: Path, seed: int, layers: int) -
 GOLDEN = REPO / "tests" / "golden" / "large_v3_f32.json"
 
 
-def _golden_on_card(card: str, path: Path) -> None:
+def _golden_on_card(card: str, path: Path) -> dict:
     """The port on the card against the JAX package's large-v3-width
     fixture (GOLDEN), on the same CLI_LAYERS-layer file: f32 weights, TF32
     off, the plain attention in the encoder (the flash kernel is bf16; the
-    main phase holds it against the plain attention)."""
+    main phase holds it against the plain attention). Returns the errors."""
     import torch
 
     from speaksense_tpu_torch.asr.engine import WhisperEngine
@@ -2461,6 +2469,165 @@ def _golden_on_card(card: str, path: Path) -> None:
           f"{want['n_tokens']} tokens {'equal' if errs['tokens_equal'] else 'DIFFER'} [{card}]")
     assert (errs["enc_rows"] <= G.ENC_RTOL and errs["enc_norm"] <= G.ENC_RTOL
             and errs["logits"] <= G.LOGITS_RTOL and errs["tokens_equal"]), errs
+    return errs
+
+
+# the full-depth parity fixture: the JAX package at f32 on the CPU, on the
+# 32 + 32-layer seed-0 f16 file this phase writes (tests/test_torch_golden.py
+# regenerates it): the window's readings and two pools' readings of three
+# seeded 5 s s16 chunks (bounds in tools/golden.py)
+GOLDEN_FULL = REPO / "tests" / "golden" / "large_v3_32l_f32.json"
+
+
+def _full_fixture(dims) -> dict:
+    """GOLDEN_FULL, which must hold `dims` (large-v3 at full depth) and every
+    key that `_golden_full_on_card` reads. A missing file raises."""
+    from speaksense_tpu_torch.tools import golden as G
+
+    want = json.loads(GOLDEN_FULL.read_text())
+    assert want["checkpoint"]["dims"] == dataclasses.asdict(dims), want["checkpoint"]
+    missing = set(G.FULL_FIXTURE_KEYS) - set(want)
+    assert not missing, f"{GOLDEN_FULL.name} lacks {sorted(missing)}"
+    return want
+
+
+def _full_readings(engine, want: dict) -> dict:
+    """The full-depth fixture's readings from `engine` (a port
+    `WhisperEngine` on the card): the window (`G.readings`: the encoder at
+    T = 1500, prefill, 24 argmax steps, the projection), then each pool of
+    the fixture (`G.pool_readings` through a `StreamingDecodeServer` of its
+    spec: the s16 chunks one at a time with the device denoise, the encoder
+    at t = 256). "launches" holds the flash kernel's launches in the window
+    and in each pool; "seconds" the wall time."""
+    import torch
+
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.runtime.slots import StreamingDecodeServer
+    from speaksense_tpu_torch.tools import golden as G
+
+    t0 = time.perf_counter()
+    dev = engine.device
+    chunks = [G.seeded_chunk(want["chunks"]["seconds"], s) for s in want["chunks"]["seeds"]]
+    mel = torch.from_numpy(G.seeded_mel(want["checkpoint"]["dims"]["n_mels"], want["mel_seed"]))
+    launches = {}
+    F.flash_attention_full.launches = 0
+    got = G.readings(engine.model, mel.to(dev), torch.tensor([want["prompt"]], device=dev),
+                     want["n_tokens"], want["top20_ids"])
+    launches["window"] = F.flash_attention_full.launches
+    for name, spec in want["servers"].items():
+        F.flash_attention_full.launches = 0
+        server = StreamingDecodeServer(engine, **spec)
+        try:
+            prompt = server._build_prompt("en", "transcribe", None)[0]
+            assert prompt == want["pool_prompt"], (prompt, want["pool_prompt"])
+            got[name] = G.pool_readings(server, chunks)
+        finally:
+            server.stop()
+        launches[name] = F.flash_attention_full.launches
+    torch.cuda.synchronize()
+    return {**got, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def _pool_text(e: dict) -> str:
+    n = len(e["tokens_equal"])
+    return (f"tokens equal in {sum(e['tokens_equal'])} of {n} chunks (common prefixes "
+            f"{e['common_prefix']})")
+
+
+def _golden_full_on_card(card: str, path: Path, want: dict, served: dict, small: dict) -> None:
+    """The port on the card against the JAX package's full-depth fixture
+    (GOLDEN_FULL) on the phase's 32 + 32-layer file at `path`.
+
+    f32 weights, TF32 off, the plain attention in the encoder (as
+    `_golden_on_card`): the window's encoder rows, norm and projection
+    within ENC_RTOL, its first-step logits within LOGITS_RTOL and its 24
+    tokens equal; each pool's tokens equal per chunk, its mean
+    log-probability and no-speech probability within `pool_logprob_atol`
+    (POOL_INT8_LOGPROB_ATOL for the int8 pages) and POOL_NO_SPEECH_ATOL.
+
+    `served` are the same readings from the bf16 engine that `build_engine`
+    serves (`_full_readings` on the phase's engine: the flash kernel in all
+    32 encoder layers at T = 1500 and t = 256): the encoder projection and
+    the logits by relative L2 within BF16_ENC_RTOL and BF16_LOGITS_RTOL,
+    each pool's mean log-probability within its BF16 bound; their tokens
+    are counted, not held. `small` are `_golden_on_card`'s errors at 4 + 4
+    layers, printed beside the full depth's."""
+    import torch
+
+    from speaksense_tpu_torch.asr.engine import WhisperEngine
+    from speaksense_tpu_torch.config import EngineConfig
+    from speaksense_tpu_torch.models import whisper as W
+    from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.tools import golden as G
+
+    n_chunks = len(want["chunks"]["seeds"])
+    n_layers = want["checkpoint"]["dims"]["n_audio_layer"]
+    assert served["launches"] == {"window": n_layers, "greedy": n_layers * n_chunks,
+                                  "beam": n_layers * n_chunks}, served["launches"]
+    t0 = time.perf_counter()
+    engine = WhisperEngine.from_ggml(str(path), config=EngineConfig(compute_dtype="float32"),
+                                     use_cache=False, device="cuda")
+    load_s = time.perf_counter() - t0
+    assert engine.model.dtype == torch.float32
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    W.flash_attention_full = F.flash_attention_ref
+    try:
+        got = _full_readings(engine, want)
+    finally:
+        W.flash_attention_full = F.flash_attention_full
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del engine
+    _free_device()
+    assert got["launches"] == {"window": 0, "greedy": 0, "beam": 0}, got["launches"]
+    f32, bf16 = G.errors(got, want), G.errors(served, want)
+    depth = f"{n_layers} + {want['checkpoint']['dims']['n_text_layer']}"
+    pools = {"greedy": "greedy pool (plain pages)",
+             "beam": "beam = 5 pool (int8 cross-KV and self-KV pages)"}
+    spec = want["servers"]["greedy"]
+    chunks = (f"{n_chunks} seeded {want['chunks']['seconds']:g} s s16 chunks with the denoise, "
+              f"{spec['n_slots']} slots, t_mel {spec['t_mel']}, {spec['max_new']} new tokens")
+    print(f"ckpt: large-v3 parity against the JAX package at full depth ({GOLDEN_FULL.name}: "
+          f"{depth} layers, f32, TF32 off; the f32 engine loaded in {load_s:.1f} s, read in "
+          f"{got['seconds']:.1f} s): encoder rows relative L2 {f32['enc_rows']:.3e} (4 + 4: "
+          f"{small['enc_rows']:.3e}), norm {f32['enc_norm']:.3e} ({small['enc_norm']:.3e}), "
+          f"projection {f32['enc_projection']:.3e} (bound {G.ENC_RTOL}), first-step logits at "
+          f"the top 20 {f32['logits']:.3e} ({small['logits']:.3e}; bound {G.LOGITS_RTOL}), "
+          f"top-20 ids {'equal' if got['top20_ids'] == want['top20_ids'] else 'differ'}, "
+          f"{want['n_tokens']} tokens {'equal' if f32['tokens_equal'] else 'DIFFER'} [{card}]")
+    for pool, what in pools.items():
+        e = f32[pool]
+        print(f"ckpt: full-depth {what} at f32 against the JAX package's ({chunks}): "
+              f"{_pool_text(e)}, |Δ avg_logprob| {e['avg_logprob']:.3e} (bound "
+              f"{G.pool_logprob_atol(want['servers'][pool])}; per chunk "
+              f"{', '.join(f'{d:.3e}' for d in e['avg_logprob_delta'])}), |Δ no_speech_prob| "
+              f"{e['no_speech_prob']:.3e} (bound {G.POOL_NO_SPEECH_ATOL}) [{card}]")
+    same = sum(a == b for a, b in zip(served["tokens"], want["tokens"]))
+    print(f"ckpt: the served engine (bf16, the flash kernel in all {n_layers} encoder layers: "
+          f"{served['launches']['window']} launches at T = 1500) against the {depth} f32 "
+          f"fixture: encoder projection relative L2 {bf16['enc_projection']:.3e} (bound "
+          f"{G.BF16_ENC_RTOL}), rows {bf16['enc_rows']:.3e}, norm {bf16['enc_norm']:.3e}, "
+          f"first-step logits at the top 20 {bf16['logits']:.3e} (bound {G.BF16_LOGITS_RTOL}), "
+          f"{same} of {want['n_tokens']} window tokens equal [{card}]")
+    served_bounds = {"greedy": G.BF16_GREEDY_LOGPROB_ATOL, "beam": G.BF16_BEAM_LOGPROB_ATOL}
+    for pool, bound in served_bounds.items():
+        e = bf16[pool]
+        print(f"ckpt: the served engine's {pool} pool (bf16; the flash kernel at t = 256: "
+              f"{served['launches'][pool]} launches) against the f32 fixture: |Δ avg_logprob| "
+              f"{e['avg_logprob']:.3e} (bound {bound}), |Δ no_speech_prob| "
+              f"{e['no_speech_prob']:.3e}, {_pool_text(e)} [{card}]")
+    assert max(f32["enc_rows"], f32["enc_norm"], f32["enc_projection"]) <= G.ENC_RTOL, f32
+    assert f32["logits"] <= G.LOGITS_RTOL and f32["tokens_equal"], f32
+    for pool in pools:
+        e = f32[pool]
+        assert all(e["tokens_equal"]), (pool, e)
+        assert e["avg_logprob"] <= G.pool_logprob_atol(want["servers"][pool]), (pool, e)
+        assert e["no_speech_prob"] <= G.POOL_NO_SPEECH_ATOL, (pool, e)
+    # the BF16 bounds, each set between a clean reading and a planted defect's
+    assert bf16["enc_projection"] <= G.BF16_ENC_RTOL, bf16
+    assert bf16["logits"] <= G.BF16_LOGITS_RTOL, bf16
+    for pool, bound in served_bounds.items():
+        assert bf16[pool]["avg_logprob"] <= bound, (pool, bf16[pool])
 
 
 # layers of the checkpoint the ckpt phase's CLI transcribes, and of the
@@ -2473,8 +2640,11 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     """Load a full-width large-v3 f16 ggml checkpoint through the port's
     composition root, cold and warm, check it, serve windows and streams
     on it, run the CLI on a checkpoint of that width cut to CLI_LAYERS
-    layers from its weight cache, and time cold loads of f16, q8_0 and q5_0 files cut to
-    load_layers layers through both dequant routes."""
+    layers from its weight cache, hold the port against the JAX package's
+    fixtures (at CLI_LAYERS layers, and at full depth for the served bf16
+    engine and an f32 one: `_golden_full_on_card`), and time cold loads of
+    f16, q8_0 and q5_0 files cut to load_layers layers through both dequant
+    routes."""
     import numpy as np
     import torch
 
@@ -2489,6 +2659,7 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
     from speaksense_tpu_torch.tools.golden import write_seeded
 
     dims = W.MODEL_DIMS["large-v3"]
+    golden_full = _full_fixture(dims)
     tmp = Path(tempfile.mkdtemp(prefix="speaksense-ckpt-"))
     hits: list[bool] = []
     real_load_cached = CK.load_cached
@@ -2586,6 +2757,10 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
                   f"in {calls} admissions); {n_encode[0]} encodes, {launches} flash kernel "
                   f"launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                   f"GiB [{card}]")
+            # the full-depth fixture's readings from this served engine,
+            # held once the f32 engine has read them too
+            served = _full_readings(inner, golden_full)
+            launches += sum(served["launches"].values())
         finally:
             _stop(engine)
         del engine, inner, pool
@@ -2623,7 +2798,12 @@ def phase_ckpt(card: str, seed: int = 0, load_layers: int = LOAD_LAYERS) -> int:
               f"rc 0 in {cli_s:.1f} s: {len(result['segments'])} segments; "
               f"{out.stderr.strip().splitlines()[-1]} [{card}]")
         assert npz.stat().st_mtime_ns == npz_mtime, "the full file's cache was rewritten"
-        _golden_on_card(card, cli_path)
+        small = _golden_on_card(card, cli_path)
+        t0 = time.perf_counter()
+        _golden_full_on_card(card, path, golden_full, served, small)
+        print(f"ckpt: full-depth parity (the f32 engine's load and readings, the checks) in "
+              f"{time.perf_counter() - t0:.1f} s, the served engine's readings before it in "
+              f"{served['seconds']:.1f} s [{card}]")
         print(f"ckpt: cold load {times['cold']:.2f} s, warm load {times['warm']:.2f} s; peak host "
               f"RSS {rss_gib():.2f} GiB [{card}]")
         _quant_loads(card, tmp, path, seed, load_layers)
