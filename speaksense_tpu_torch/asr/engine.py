@@ -89,6 +89,13 @@ def needs_fallback_retry(cand: dict, config: EngineConfig) -> bool:
                 and cand.get("token_entropy", 99.0) < config.entropy_thold))
 
 
+def _to_host(out: dict) -> dict:
+    """A window attempt's per-row outputs, read back to numpy."""
+    with METRICS.span("engine.readback"):
+        return {k: out[k].cpu().numpy()
+                for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
+
+
 class _PendingChunk:
     """Handle for one in-flight stream chunk (`submit_stream_chunk`):
     settle() blocks until the slot pool finishes the chunk's decode, then
@@ -344,16 +351,17 @@ class WhisperEngine(AsrEngine):
     def compute_mel(self, audio, pad_to: int | None = None) -> torch.Tensor:
         """audio (n,) or (B, n) f32 @16k -> (B, T_mel, n_mels) on the engine's
         device. pad_to selects a frame count (3000 for full windows)."""
-        a = np.atleast_2d(np.asarray(audio, np.float32))
-        if pad_to is None:
-            return MEL.log_mel_spectrogram(a, n_mels=self.dims.n_mels,
-                                           filters=self.mel_filters, device=self.device)
-        target = pad_to * MEL.HOP_LENGTH
-        if a.shape[-1] < target:
-            a = np.pad(a, ((0, 0), (0, target - a.shape[-1])))
-        return MEL.log_mel_spectrogram(a[:, :target], n_mels=self.dims.n_mels,
-                                       filters=self.mel_filters, pad_to_chunk=False,
-                                       device=self.device)
+        with METRICS.span("engine.mel"):
+            a = np.atleast_2d(np.asarray(audio, np.float32))
+            if pad_to is None:
+                return MEL.log_mel_spectrogram(a, n_mels=self.dims.n_mels,
+                                               filters=self.mel_filters, device=self.device)
+            target = pad_to * MEL.HOP_LENGTH
+            if a.shape[-1] < target:
+                a = np.pad(a, ((0, 0), (0, target - a.shape[-1])))
+            return MEL.log_mel_spectrogram(a[:, :target], n_mels=self.dims.n_mels,
+                                           filters=self.mel_filters, pad_to_chunk=False,
+                                           device=self.device)
 
     @staticmethod
     def _mel_bucket(t_mel: int) -> int:
@@ -382,8 +390,7 @@ class WhisperEngine(AsrEngine):
             torch.as_tensor(temps, dtype=torch.float32, device=self.device),
             self._rng, sot_index=sot_index, n_audio_ctx=n_audio_ctx, prompt_len=prompt_len,
             cross_kv_int8=self.config.cross_kv_int8, self_kv_int8=self_int8)
-        return {k: out[k].cpu().numpy()
-                for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
+        return _to_host(out)
 
     @collective("window")
     def _run_beam(self, mels, prompt, prompt_len, sot_index, with_ts: bool, max_new: int,
@@ -396,49 +403,51 @@ class WhisperEngine(AsrEngine):
             beam_size=beam_size, n_audio_ctx=min(mels.shape[1] // 2, self.dims.n_audio_ctx),
             prompt_len=prompt_len, sot_index=sot_index,
             cross_kv_int8=self.config.cross_kv_int8)
-        return {k: out[k].cpu().numpy()
-                for k in ("tokens", "n_sampled", "avg_logprob", "no_speech_prob")}
+        return _to_host(out)
 
     def decode_windows(self, mels, language, task: str = "transcribe",
                        with_timestamps: bool = True, suppress_non_speech: bool = False,
                        max_new_tokens: int | None = None, temperatures=None,
                        beam_size: int | None = None,
                        speaker_diarization: bool = False,
-                       context_tokens: list | None = None) -> list[dict]:
+                       context_tokens: list | None = None, pad_rows: int = 0) -> list[dict]:
         """Decode a batch of mel windows with per-row temperature fallback.
         mels: (B, T_mel, n_mels); language: one code or a per-row list.
         beam_size=None takes `config.beam_size`: with beam_size > 1 and no
         row starting hot, the first attempt is beam search; retries sample.
+        pad_rows: the last rows only fill the batch (`asr_windows_total`
+        leaves them out).
         Returns per-row dicts with tokens/text/avg_logprob/no_speech_prob/
         compression_ratio/temperature."""
         if beam_size is None:
             beam_size = self.config.beam_size
         mels = torch.as_tensor(mels, device=self.device)
         B = mels.shape[0]
-        langs = ([language] * B if (language is None or isinstance(language, str))
-                 else list(language))
-        sot_rows = [self.tokenizer.sot_sequence(lang or "en", task=task,
-                                                timestamps=with_timestamps)
-                    for lang in langs]
-        # conditioning: [<|startofprev|>] + context + sot_seq, right-padded
-        ctx = context_tokens if context_tokens is not None else [[] for _ in range(B)]
-        max_ctx = self.dims.n_text_ctx // 2 - 1 - max(len(r) for r in sot_rows)
-        rows, lens, sots = [], [], []
-        for i in range(B):
-            c = list(ctx[i] or [])[-max_ctx:]
-            row = ([self.tokenizer.sot_prev] + c if c else []) + sot_rows[i]
-            rows.append(row)
-            lens.append(len(row))
-            sots.append(len(row) - len(sot_rows[i]))
-        P = max(lens)
-        if P > len(sot_rows[0]):  # bucket to multiples of 32 past the base size
-            P = ((P + 31) // 32) * 32
-        prompt_np = np.full((B, P), self.tokenizer.eot, np.int64)
-        for i, row in enumerate(rows):
-            prompt_np[i, :len(row)] = row
-        prompt = torch.as_tensor(prompt_np, device=self.device)
-        prompt_len = torch.as_tensor(lens, dtype=torch.long, device=self.device)
-        sot_index = torch.as_tensor(sots, dtype=torch.long, device=self.device)
+        with METRICS.span("engine.prompt"):
+            langs = ([language] * B if (language is None or isinstance(language, str))
+                     else list(language))
+            sot_rows = [self.tokenizer.sot_sequence(lang or "en", task=task,
+                                                    timestamps=with_timestamps)
+                        for lang in langs]
+            # conditioning: [<|startofprev|>] + context + sot_seq, right-padded
+            ctx = context_tokens if context_tokens is not None else [[] for _ in range(B)]
+            max_ctx = self.dims.n_text_ctx // 2 - 1 - max(len(r) for r in sot_rows)
+            rows, lens, sots = [], [], []
+            for i in range(B):
+                c = list(ctx[i] or [])[-max_ctx:]
+                row = ([self.tokenizer.sot_prev] + c if c else []) + sot_rows[i]
+                rows.append(row)
+                lens.append(len(row))
+                sots.append(len(row) - len(sot_rows[i]))
+            P = max(lens)
+            if P > len(sot_rows[0]):  # bucket to multiples of 32 past the base size
+                P = ((P + 31) // 32) * 32
+            prompt_np = np.full((B, P), self.tokenizer.eot, np.int64)
+            for i, row in enumerate(rows):
+                prompt_np[i, :len(row)] = row
+            prompt = torch.as_tensor(prompt_np, device=self.device)
+            prompt_len = torch.as_tensor(lens, dtype=torch.long, device=self.device)
+            sot_index = torch.as_tensor(sots, dtype=torch.long, device=self.device)
         max_new = max_new_tokens or self.config.max_decode_len // 2
         suppress = self._suppress[(suppress_non_speech, speaker_diarization)]
 
@@ -448,7 +457,7 @@ class WhisperEngine(AsrEngine):
         results: list[dict | None] = [None] * B
         last_attempt: list[dict | None] = [None] * B
         pending = np.ones((B,), bool)
-        METRICS.inc("asr_windows_total", B)
+        METRICS.inc("asr_windows_total", B - pad_rows)
         t_start = time.perf_counter()
 
         def _candidate(out: dict, row: int, temp) -> dict:
@@ -476,19 +485,21 @@ class WhisperEngine(AsrEngine):
 
         # attempt 0: every row at its starting temperature (greedy by
         # default), or beam search when configured and no row starts hot
-        if beam_size and beam_size > 1 and not temps.any():
-            out = self._run_beam(mels, prompt, prompt_len, sot_index, with_timestamps,
-                                 max_new, suppress, beam_size)
-        else:
-            out = self._run_window(mels, prompt, prompt_len, sot_index, temps,
-                                   with_timestamps, max_new, suppress)
-        for b in range(B):
-            _settle(b, _candidate(out, b, temps[b]))
+        with METRICS.span("engine.attempt", attempt=0, rows=B):
+            if beam_size and beam_size > 1 and not temps.any():
+                out = self._run_beam(mels, prompt, prompt_len, sot_index, with_timestamps,
+                                     max_new, suppress, beam_size)
+            else:
+                out = self._run_window(mels, prompt, prompt_len, sot_index, temps,
+                                       with_timestamps, max_new, suppress)
+        with METRICS.span("engine.settle"):
+            for b in range(B):
+                _settle(b, _candidate(out, b, temps[b]))
 
         # retries: t > 0 sampling with best_of candidate rows per pending
         # window; the best avg_logprob wins (openai best_of rule)
         best_of = max(1, int(self.config.best_of))
-        for _attempt in range(1, len(schedule)):
+        for attempt in range(1, len(schedule)):
             pend_idx = [b for b in range(B) if pending[b]]
             if not pend_idx:
                 break
@@ -501,13 +512,15 @@ class WhisperEngine(AsrEngine):
                     cand_rows.extend([s_i] * best_of)
                 cand_rows.extend([group[0]] * (Bc - len(cand_rows)))  # pad rows (ignored)
                 idx = torch.as_tensor(cand_rows, dtype=torch.long, device=self.device)
-                out = self._run_window(mels[idx], prompt[idx], prompt_len[idx],
-                                       sot_index[idx], temps[np.asarray(cand_rows)],
-                                       with_timestamps, max_new, suppress)
-                for gi, s_i in enumerate(group):
-                    rows_i = range(gi * best_of, (gi + 1) * best_of)
-                    best_row = max(rows_i, key=lambda r: out["avg_logprob"][r])
-                    _settle(s_i, _candidate(out, best_row, temps[s_i]))
+                with METRICS.span("engine.attempt", attempt=attempt, rows=Bc):
+                    out = self._run_window(mels[idx], prompt[idx], prompt_len[idx],
+                                           sot_index[idx], temps[np.asarray(cand_rows)],
+                                           with_timestamps, max_new, suppress)
+                with METRICS.span("engine.settle"):
+                    for gi, s_i in enumerate(group):
+                        rows_i = range(gi * best_of, (gi + 1) * best_of)
+                        best_row = max(rows_i, key=lambda r: out["avg_logprob"][r])
+                        _settle(s_i, _candidate(out, best_row, temps[s_i]))
         for b in range(B):
             if results[b] is None:
                 results[b] = last_attempt[b]

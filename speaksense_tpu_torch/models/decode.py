@@ -18,6 +18,7 @@ import torch
 
 from speaksense_tpu_torch.models import whisper as W
 from speaksense_tpu_torch.models.tokenizer import TS_RESOLUTION, Tokenizer
+from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
 NEG_INF = -1e30
 
@@ -134,24 +135,30 @@ def decode_loop(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
     logits = first_logits
     hot = bool((temperature > 0).any())     # read once, not at every step
     for step in range(L):
-        filtered = apply_logit_rules(logits, cfg, suppress_mask, n_sampled, last, penult, last_ts)
-        tok = _sample(filtered, temperature, generator, hot)
-        tok = torch.where(finished, cfg.eot, tok)
-        lp = torch.log_softmax(filtered, dim=-1)
-        tok_lp = lp.gather(-1, tok[:, None])[:, 0]
-        newly_done = ~finished & (tok == cfg.eot)
-        active = ~finished
-        tokens[:, step] = tok
-        upd = active & ~newly_done
-        n_sampled += upd.long()
-        penult = torch.where(upd, last, penult)
-        last = torch.where(upd, tok, last)
-        last_ts = torch.where(upd & (tok >= cfg.ts_begin), tok, last_ts)
-        finished = finished | newly_done
-        sum_lp += torch.where(active, tok_lp, 0.0)
-        if step + 1 == L or bool(finished.all()):
-            break
-        logits = W.decode_step(model, tok, cache, step, prompt_len, gen_base)
+        with METRICS.span("decode.step", step=step):
+            filtered = apply_logit_rules(logits, cfg, suppress_mask, n_sampled, last, penult,
+                                         last_ts)
+            tok = _sample(filtered, temperature, generator, hot)
+            tok = torch.where(finished, cfg.eot, tok)
+            lp = torch.log_softmax(filtered, dim=-1)
+            tok_lp = lp.gather(-1, tok[:, None])[:, 0]
+            newly_done = ~finished & (tok == cfg.eot)
+            active = ~finished
+            tokens[:, step] = tok
+            upd = active & ~newly_done
+            n_sampled += upd.long()
+            penult = torch.where(upd, last, penult)
+            last = torch.where(upd, tok, last)
+            last_ts = torch.where(upd & (tok >= cfg.ts_begin), tok, last_ts)
+            finished = finished | newly_done
+            sum_lp += torch.where(active, tok_lp, 0.0)
+            if step + 1 == L:
+                break
+            with METRICS.span("decode.sync"):     # the host waits for the card here
+                done = bool(finished.all())
+            if done:
+                break
+            logits = W.decode_step(model, tok, cache, step, prompt_len, gen_base)
     return dict(tokens=tokens, n_sampled=n_sampled, sum_logprob=sum_lp)
 
 
@@ -184,16 +191,21 @@ def transcribe_window(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Te
     dev = prompt.device
     if prompt_len is None:
         prompt_len = torch.full((B,), P, dtype=torch.long, device=dev)
-    enc = W.encode(model, mel, n_ctx_out=n_audio_ctx)
-    cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens, cross_int8=cross_kv_int8,
-                         self_int8=self_kv_int8, ring_width=ring_width(cfg.max_new_tokens))
-    prefill_logits = W.decode_prefill(model, prompt, cache)
-    rows = torch.arange(B, device=dev)
-    sot_idx = torch.as_tensor(sot_index, dtype=torch.long, device=dev).expand(B)
-    no_speech_prob = torch.softmax(prefill_logits[rows, sot_idx].float(), dim=-1)[:, cfg.no_speech]
-    first_logits = prefill_logits[rows, prompt_len - 1]
-    out = decode_loop(model, cfg, suppress_mask, first_logits, cache, prompt_len, P,
-                      temperature, generator)
+    with METRICS.span("decode.encode", device=dev):
+        enc = W.encode(model, mel, n_ctx_out=n_audio_ctx)
+    with METRICS.span("decode.cross_kv", device=dev):
+        cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens, cross_int8=cross_kv_int8,
+                             self_int8=self_kv_int8, ring_width=ring_width(cfg.max_new_tokens))
+    with METRICS.span("decode.prefill", device=dev):
+        prefill_logits = W.decode_prefill(model, prompt, cache)
+        rows = torch.arange(B, device=dev)
+        sot_idx = torch.as_tensor(sot_index, dtype=torch.long, device=dev).expand(B)
+        no_speech_prob = torch.softmax(prefill_logits[rows, sot_idx].float(),
+                                       dim=-1)[:, cfg.no_speech]
+        first_logits = prefill_logits[rows, prompt_len - 1]
+    with METRICS.span("decode.steps", device=dev):
+        out = decode_loop(model, cfg, suppress_mask, first_logits, cache, prompt_len, P,
+                          temperature, generator)
     out["avg_logprob"] = out["sum_logprob"] / (out["n_sampled"] + 1).float()
     out["no_speech_prob"] = no_speech_prob
     return out

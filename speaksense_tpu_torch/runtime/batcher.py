@@ -105,36 +105,45 @@ class BatchedEngine(AsrEngine):
             self._run_batch(batch)
 
     def _run_batch(self, batch: list[_WindowJob]) -> None:
-        try:
-            dev = self.engine.device
-            mels = torch.stack([j.mel.to(dev) for j in batch])
-            # pad rows replicate row 0 (same mel and language), so they follow
-            # row 0's own accept/retry behaviour instead of decoding garbage
-            pad = self.max_batch - len(batch)
-            if pad > 0:
-                mels = torch.cat([mels, mels[:1].expand(pad, *mels.shape[1:])])
-            langs = [j.language for j in batch] + [batch[0].language] * pad
-            contexts = [j.context or [] for j in batch] + [[]] * pad
-            temps = [j.temperature for j in batch] + [batch[0].temperature] * pad
-            results = self.engine.decode_windows(
-                mels, langs, task=batch[0].task,
-                suppress_non_speech=batch[0].suppress_non_speech,
-                speaker_diarization=batch[0].speaker_diarization,
-                temperatures=temps if any(temps) else None,
-                context_tokens=contexts if any(contexts) else None)
-            self.batches_run += 1
-            self.windows_run += len(batch)
-            METRICS.inc("asr_batches_total")
-            METRICS.set_gauge("asr_batch_occupancy", len(batch) / self.max_batch)
-            for job, res in zip(batch, results):
-                job.future.set_result(res)
-        except Exception as e:
-            # the collector thread must keep serving: fail this batch's
-            # callers with the error and go on
-            log.error("batched decode failed: %s", e, exc_info=True)
-            for job in batch:
-                if not job.future.done():
-                    job.future.set_exception(e)
+        pad = self.max_batch - len(batch)
+        # the batch's spans carry the number `batches_run` takes when it
+        # completes; a batch that fails is marked, as the next one takes its number
+        with METRICS.span("batcher.batch", batch=self.batches_run + 1, rows=len(batch),
+                          pad=pad) as span:
+            try:
+                dev = self.engine.device
+                with METRICS.span("batcher.stack"):
+                    mels = torch.stack([j.mel.to(dev) for j in batch])
+                    # pad rows replicate row 0 (same mel and language), so they
+                    # follow row 0's own accept/retry behaviour instead of
+                    # decoding garbage
+                    if pad > 0:
+                        mels = torch.cat([mels, mels[:1].expand(pad, *mels.shape[1:])])
+                    langs = [j.language for j in batch] + [batch[0].language] * pad
+                    contexts = [j.context or [] for j in batch] + [[]] * pad
+                    temps = [j.temperature for j in batch] + [batch[0].temperature] * pad
+                results = self.engine.decode_windows(
+                    mels, langs, task=batch[0].task,
+                    suppress_non_speech=batch[0].suppress_non_speech,
+                    speaker_diarization=batch[0].speaker_diarization,
+                    temperatures=temps if any(temps) else None,
+                    context_tokens=contexts if any(contexts) else None,
+                    pad_rows=pad)
+                self.batches_run += 1
+                self.windows_run += len(batch)
+                METRICS.inc("asr_batches_total")
+                METRICS.set_gauge("asr_batch_occupancy", len(batch) / self.max_batch)
+                with METRICS.span("batcher.deliver"):
+                    for job, res in zip(batch, results):
+                        job.future.set_result(res)
+            except Exception as e:
+                # the collector thread must keep serving: fail this batch's
+                # callers with the error and go on
+                log.error("batched decode failed: %s", e, exc_info=True)
+                span.annotate(failed=True)
+                for job in batch:
+                    if not job.future.done():
+                        job.future.set_exception(e)
 
     def stop(self) -> None:
         self._stop.set()
