@@ -1179,6 +1179,7 @@ def _int8_window(card: str) -> int:
     from speaksense_tpu_torch.models import decode as D
     from speaksense_tpu_torch.models import whisper as W
     from speaksense_tpu_torch.ops import flash as F
+    from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
     q8cfg = EngineConfig(weights_int8=True, cross_kv_int8=True, self_kv_int8=True, **NEUTRAL)
     t0 = time.perf_counter()
@@ -1196,6 +1197,9 @@ def _int8_window(card: str) -> int:
     D.transcribe_window = recording_transcribe_window
     n_encode, restore = _count_encodes(W)
     F.flash_attention_full.launches = 0
+    counts = METRICS.snapshot()["counters"]
+    before = {k: counts.get(f"asr_decode_{k}_total", 0.0)
+              for k in ("steps", "graph_steps", "graph_captures")}
     try:
         mel = q8.compute_mel(_speech(30, seed=700))
         torch.cuda.synchronize()
@@ -1207,13 +1211,23 @@ def _int8_window(card: str) -> int:
         restore()
         D.transcribe_window = real_tw
     L = q8.dims.n_audio_layer
+    counts = METRICS.snapshot()["counters"]
+    graph = {k: counts.get(f"asr_decode_{k}_total", 0.0) - before[k] for k in before}
     assert flags == [(True, True)], flags
+    # greedy over int8 self pages on one card: each step but the 128th is
+    # run by the graphs' entry, the first of each of the 16 ring rows
+    # eagerly as it is captured, the rest replayed
+    advanced = min(graph["steps"], 127)
+    assert graph["graph_captures"] == min(16, advanced), graph
+    assert graph["graph_steps"] == advanced - graph["graph_captures"] > 0, graph
     assert n == L * n_encode[0] == L, (n, n_encode[0])
     assert _first_token_ok(r, q8._rule_config(True, 128)) and np.isfinite(r["avg_logprob"]), r
     print(f"beam int8 window: engine with int8 decoder weights, int8 cross-KV and int8 self-KV "
           f"built in {build_s:.1f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB); one 30 s "
-          f"window, {r['n_sampled']} tokens in {q8_ms:.1f} ms, avg_logprob "
-          f"{r['avg_logprob']:.4f}, {n} flash kernel launches [{card}]")
+          f"window, {r['n_sampled']} tokens in {q8_ms:.1f} ms (with the graphs' captures), "
+          f"avg_logprob {r['avg_logprob']:.4f}, {n} flash kernel launches; decode steps "
+          f"{graph['steps']:.0f}, {graph['graph_captures']:.0f} graphs captured, "
+          f"{graph['graph_steps']:.0f} steps replayed [{card}]")
     del q8
     _free_device()
     return n

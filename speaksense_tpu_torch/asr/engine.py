@@ -199,6 +199,8 @@ class WhisperEngine(AsrEngine):
         self.seed = seed
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._slot_server = None
+        # the window steps' CUDA graphs and the caches they own (`D.WindowGraphs`)
+        self._window_graphs = D.WindowGraphs()
         self.mesh = None            # set by shard(): the (dp, tp) serving mesh
         self._pool = None           # the slot pool, the one a follower's calls reach
 
@@ -389,7 +391,8 @@ class WhisperEngine(AsrEngine):
             self.model, self._rule_config(with_ts, max_new), suppress, mels, prompt,
             torch.as_tensor(temps, dtype=torch.float32, device=self.device),
             self._rng, sot_index=sot_index, n_audio_ctx=n_audio_ctx, prompt_len=prompt_len,
-            cross_kv_int8=self.config.cross_kv_int8, self_kv_int8=self_int8)
+            cross_kv_int8=self.config.cross_kv_int8, self_kv_int8=self_int8,
+            graphs=self._window_graphs)
         return _to_host(out)
 
     @collective("window")

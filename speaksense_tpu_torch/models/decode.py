@@ -11,6 +11,9 @@ samples with Gumbel-max noise drawn from a `torch.Generator`.
 
 from __future__ import annotations
 
+import logging
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +24,8 @@ from speaksense_tpu_torch.models.tokenizer import TS_RESOLUTION, Tokenizer
 from speaksense_tpu_torch.utils.metrics import REGISTRY as METRICS
 
 NEG_INF = -1e30
+
+log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -112,54 +117,118 @@ def _sample(logits: torch.Tensor, temperature: torch.Tensor,
     return noisy.argmax(dim=-1)
 
 
+@dataclass
+class LoopState:
+    """What a window decode carries from one step to the next, written in
+    place: the logits the next token is sampled from (B, V) f32, the
+    sampled tokens (B, max_new) (EOT-padded), the rule state, the rows that
+    have emitted EOT, the running log-probability sum and `step`, a 0-d
+    int64 on the device: the step the next token is sampled at, the column
+    it is written to."""
+
+    logits: torch.Tensor
+    tokens: torch.Tensor
+    n_sampled: torch.Tensor
+    last: torch.Tensor
+    penult: torch.Tensor
+    last_ts: torch.Tensor
+    finished: torch.Tensor
+    sum_lp: torch.Tensor
+    step: torch.Tensor
+
+    @classmethod
+    def empty(cls, B: int, V: int, max_new: int, device) -> "LoopState":
+        def z(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(logits=z(torch.float32, B, V), tokens=z(torch.long, B, max_new),
+                   n_sampled=z(torch.long, B), last=z(torch.long, B), penult=z(torch.long, B),
+                   last_ts=z(torch.long, B), finished=z(torch.bool, B),
+                   sum_lp=z(torch.float32, B), step=z(torch.long))
+
+    def start(self, first_logits: torch.Tensor, eot: int) -> "LoopState":
+        """The state before the first step: first_logits, EOT tokens, zeros."""
+        self.logits.copy_(first_logits)
+        self.tokens.fill_(eot)
+        for t in (self.n_sampled, self.last, self.penult, self.last_ts, self.finished,
+                  self.sum_lp, self.step):
+            t.zero_()
+        return self
+
+
+def sample_token(st: LoopState, cfg: RuleConfig, suppress_mask: torch.Tensor,
+                 temperature: torch.Tensor, generator: torch.Generator | None,
+                 hot: bool) -> torch.Tensor:
+    """The token at step `st.step` for every row, in place on `st`: the
+    logit rules on `st.logits`, sampling, EOT for rows already finished,
+    the token's column, the rule state, `finished` and the log-probability
+    sum. Returns the (B,) tokens."""
+    filtered = apply_logit_rules(st.logits, cfg, suppress_mask, st.n_sampled, st.last,
+                                 st.penult, st.last_ts)
+    tok = _sample(filtered, temperature, generator, hot)
+    tok = torch.where(st.finished, cfg.eot, tok)
+    lp = torch.log_softmax(filtered, dim=-1)
+    tok_lp = lp.gather(-1, tok[:, None])[:, 0]
+    newly_done = ~st.finished & (tok == cfg.eot)
+    active = ~st.finished
+    st.tokens.index_copy_(1, st.step.view(1), tok[:, None])
+    upd = active & ~newly_done
+    st.n_sampled += upd.long()
+    st.penult.copy_(torch.where(upd, st.last, st.penult))
+    st.last.copy_(torch.where(upd, tok, st.last))
+    st.last_ts.copy_(torch.where(upd & (tok >= cfg.ts_begin), tok, st.last_ts))
+    st.finished |= newly_done
+    st.sum_lp += torch.where(active, tok_lp, 0.0)
+    return tok
+
+
 @torch.no_grad()
 def decode_loop(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
                 first_logits: torch.Tensor, cache: W.KVCache, prompt_len: torch.Tensor,
                 gen_base: int, temperature: torch.Tensor,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                steps: "WindowSteps | None" = None) -> dict:
     """Sample from the post-prompt logits until every row has emitted EOT or
     max_new_tokens were sampled. Returns
       tokens (B, max_new) int64 — sampled tokens, EOT-padded,
       n_sampled (B,) — count of real tokens (excluding EOT),
-      sum_logprob (B,) — sum of sampled-token logprobs (including EOT)."""
-    B = first_logits.shape[0]
+      sum_logprob (B,) — sum of sampled-token logprobs (including EOT).
+
+    With `steps` (greedy rows over its own cache and inputs, which the
+    caller has loaded) each step but the last is `steps.advance`: the token
+    and the model step after it, replayed from the ring row's CUDA graph
+    where there is one. The host still reads `finished` after every step.
+    Counts its steps in `asr_decode_steps_total` and the replayed ones in
+    `asr_decode_graph_steps_total`."""
     L = cfg.max_new_tokens
-    dev = first_logits.device
-    tokens = torch.full((B, L), cfg.eot, dtype=torch.long, device=dev)
-    n_sampled = torch.zeros(B, dtype=torch.long, device=dev)
-    last = torch.zeros(B, dtype=torch.long, device=dev)
-    penult = torch.zeros(B, dtype=torch.long, device=dev)
-    last_ts = torch.zeros(B, dtype=torch.long, device=dev)
-    finished = torch.zeros(B, dtype=torch.bool, device=dev)
-    sum_lp = torch.zeros(B, dtype=torch.float32, device=dev)
-    logits = first_logits
-    hot = bool((temperature > 0).any())     # read once, not at every step
+    if steps is None:
+        B, V = first_logits.shape
+        st = LoopState.empty(B, V, L, first_logits.device).start(first_logits, cfg.eot)
+        hot = bool((temperature > 0).any())     # read once, not at every step
+    else:
+        st, hot = steps.state.start(first_logits, cfg.eot), False
+    replayed = n_steps = 0
     for step in range(L):
+        n_steps = step + 1
         with METRICS.span("decode.step", step=step):
-            filtered = apply_logit_rules(logits, cfg, suppress_mask, n_sampled, last, penult,
-                                         last_ts)
-            tok = _sample(filtered, temperature, generator, hot)
-            tok = torch.where(finished, cfg.eot, tok)
-            lp = torch.log_softmax(filtered, dim=-1)
-            tok_lp = lp.gather(-1, tok[:, None])[:, 0]
-            newly_done = ~finished & (tok == cfg.eot)
-            active = ~finished
-            tokens[:, step] = tok
-            upd = active & ~newly_done
-            n_sampled += upd.long()
-            penult = torch.where(upd, last, penult)
-            last = torch.where(upd, tok, last)
-            last_ts = torch.where(upd & (tok >= cfg.ts_begin), tok, last_ts)
-            finished = finished | newly_done
-            sum_lp += torch.where(active, tok_lp, 0.0)
-            if step + 1 == L:
-                break
+            if steps is not None and step + 1 < L:
+                replayed += steps.advance(step)
+            else:
+                tok = sample_token(st, cfg, suppress_mask, temperature, generator, hot)
+                if step + 1 == L:
+                    break
             with METRICS.span("decode.sync"):     # the host waits for the card here
-                done = bool(finished.all())
+                done = bool(st.finished.all())
             if done:
                 break
-            logits = W.decode_step(model, tok, cache, step, prompt_len, gen_base)
-    return dict(tokens=tokens, n_sampled=n_sampled, sum_logprob=sum_lp)
+            if steps is None:
+                st.logits = W.decode_step(model, tok, cache, step, prompt_len, gen_base)
+                st.step += 1
+    METRICS.inc("asr_decode_steps_total", n_steps)
+    METRICS.inc("asr_decode_graph_steps_total", replayed)
+    out = dict(tokens=st.tokens, n_sampled=st.n_sampled, sum_logprob=st.sum_lp)
+    # the entry's buffers serve its next batch: hand out copies
+    return out if steps is None else {k: v.clone() for k, v in out.items()}
 
 
 def ring_width(max_new: int) -> int:
@@ -172,40 +241,232 @@ def ring_width(max_new: int) -> int:
     return width
 
 
+class WindowSteps:
+    """One greedy window decode over int8 self pages, made replayable: the
+    batch's cache (int8 self pages of P + max_new columns with their ring,
+    the cross-KV) and inputs (`prompt_len`, `suppress`) and the loop's
+    `LoopState` live in buffers allocated once and written in place, so a
+    step reads no host value that changes from step to step but its ring
+    row n = step % W. The pages are as wide as the eager loop's, so the
+    arithmetic, and the bits, are the eager loop's: pages wider than the
+    prompt needs would lengthen the softmax and the value products, and
+    round them otherwise on the card. `nbytes` is what the entry holds.
+
+    On a CUDA device each ring row's step (`body`) runs eagerly the first
+    time on a side stream, which warms it up, and is then captured into a
+    CUDA graph; later steps of that row replay it. The W graphs share one
+    memory pool and keep no tensor alive in it between replays, so they
+    replay in any order. A capture that raises leaves the entry eager
+    (`failed`) and the step's result stands: a capture runs nothing. On
+    the CPU the body always runs eagerly."""
+
+    def __init__(self, model: W.Whisper, cfg: RuleConfig, B: int, P: int, n_audio_ctx: int,
+                 cross_int8: bool, device, width: int):
+        device = torch.device(device)
+        self.model, self.cfg, self.gen_base, self.cross_int8 = model, cfg, P, cross_int8
+        self.width = width
+        cross = W.zero_cross(model, B, n_audio_ctx, device, int8=cross_int8)
+        self.cache = W.new_cache(model, cross, P + cfg.max_new_tokens, self_int8=True,
+                                 ring_width=width)
+        self.prompt_len = torch.zeros(B, dtype=torch.long, device=device)
+        self.suppress = torch.zeros(model.dims.n_vocab, dtype=torch.bool, device=device)
+        self.temperature = torch.zeros(B, dtype=torch.float32, device=device)
+        self.state = LoopState.empty(B, model.dims.n_vocab, cfg.max_new_tokens, device)
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (*vars(self.cache).values(), *vars(self.state).values())
+                          if t is not None)
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.capture = device.type == "cuda"
+        self.failed = False
+        self.stream = torch.cuda.Stream(device) if self.capture else None
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self.lock = threading.Lock()
+        self.key = None             # its key in the `WindowGraphs` that made it
+
+    def load(self, enc: torch.Tensor, prompt_len: torch.Tensor,
+             suppress_mask: torch.Tensor) -> W.KVCache:
+        """A batch into the entry: the cross-KV of the encoder states enc
+        computed into its buffers, zero self pages, scales and ring, the
+        prompt lengths and the suppress mask. Returns the cache, for the
+        prefill."""
+        c = self.cache
+        cross = (c.cross_k, c.cross_v) + ((c.cross_ks, c.cross_vs) if self.cross_int8 else ())
+        W.compute_cross_kv(self.model, enc, int8=self.cross_int8, out=cross)
+        for t in (c.self_k, c.self_v, c.self_ks, c.self_vs, c.ring_k, c.ring_v):
+            t.zero_()
+        self.prompt_len.copy_(prompt_len)
+        self.suppress.copy_(suppress_mask)
+        return c
+
+    def body(self, n: int) -> None:
+        """One step at ring row n: the token at `state.step` (greedy), the
+        model step after it, its logits into `state.logits`, the step
+        counter advanced. What a graph of row n holds."""
+        st = self.state
+        tok = sample_token(st, self.cfg, self.suppress, self.temperature, None, False)
+        st.logits.copy_(W.decode_step(self.model, tok, self.cache, st.step, self.prompt_len,
+                                      self.gen_base, ring_n=n))
+        st.step += 1
+
+    def advance(self, step: int) -> bool:
+        """Run loop step `step` (not the last): True where a graph replayed
+        it."""
+        n = step % self.width
+        graph = self.graphs.get(n)
+        if graph is not None:
+            graph.replay()
+            return True
+        if not self.capture:
+            self.body(n)
+            return False
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self.body(n)            # the step itself, which warms its row up
+            try:
+                self.graphs[n] = self._capture(n)
+                METRICS.inc("asr_decode_graph_captures_total")
+            except RuntimeError:
+                log.exception("capturing the window step failed (B %d, ring row %d); "
+                              "these batches decode eagerly", self.state.tokens.shape[0], n)
+                self.capture, self.failed = False, True
+                self.graphs.clear()
+        current.wait_stream(self.stream)
+        return False
+
+    def _capture(self, n: int) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads (a client's mel) keep using the card
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        try:
+            self.body(n)
+        finally:
+            graph.capture_end()
+        return graph
+
+
+class WindowGraphs:
+    """The window path's `WindowSteps` entries, one for each key: what a
+    batch's decode is built from: the model, the rules (constants of the
+    graphs), B, the padded prompt length P, the encoder frames, the
+    cross-KV's form and the device (max_new, the ring's width and the
+    compute dtype follow from the rules and the model). A key's first batch
+    captures its graphs. The entries hold at most `budget_bytes` together
+    (by default a quarter of a CUDA card's memory: the weights and the slot
+    pools keep the rest), the least recently used going first; a batch
+    whose entry alone would pass it decodes eagerly. A key whose capture
+    failed stays eager for the life of this object. The caller that owns
+    it (`WhisperEngine`) passes it to `transcribe_window`."""
+
+    BUDGET_SHARE = 0.25
+
+    def __init__(self, budget_bytes: int | None = None):
+        self.budget_bytes = budget_bytes
+        self._entries: OrderedDict = OrderedDict()
+        self._eager: set = set()
+        self._lock = threading.Lock()
+
+    def _budget(self, device: torch.device) -> float:
+        if self.budget_bytes is not None:
+            return self.budget_bytes
+        if device.type != "cuda":
+            return float("inf")
+        return self.BUDGET_SHARE * torch.cuda.get_device_properties(device).total_memory
+
+    def take(self, model: W.Whisper, cfg: RuleConfig, B: int, P: int, n_audio_ctx: int,
+             cross_int8: bool, device) -> WindowSteps | None:
+        """The key's entry, locked for the caller (`release` it), or None
+        where the batch decodes eagerly: its key is eager, another thread
+        holds the entry, or the entry would not fit the budget."""
+        device = torch.device(device)
+        key = (id(model), cfg, B, P, n_audio_ctx, cross_int8, model.dtype, str(device))
+        with self._lock:
+            if key in self._eager:
+                return None
+            entry = self._entries.get(key)
+            if entry is None:
+                args = (model, cfg, B, P, n_audio_ctx, cross_int8)
+                width = ring_width(cfg.max_new_tokens)
+                need = WindowSteps(*args, "meta", width).nbytes     # sized, not allocated
+                budget = self._budget(device)
+                if need > budget:
+                    return None
+                while self._entries and (need + sum(e.nbytes for e in self._entries.values())
+                                         > budget):
+                    self._entries.popitem(last=False)
+                entry = self._entries[key] = WindowSteps(*args, device, width)
+                entry.key = key
+            self._entries.move_to_end(key)
+            return entry if entry.lock.acquire(blocking=False) else None
+
+    def release(self, entry: WindowSteps) -> None:
+        with self._lock:
+            if entry.failed:
+                self._eager.add(entry.key)
+                self._entries.pop(entry.key, None)
+        entry.lock.release()
+
+
+def graphs_engage(model: W.Whisper, device, self_kv_int8: bool,
+                  temperature: torch.Tensor) -> bool:
+    """Whether a window batch's steps replay from CUDA graphs: greedy rows
+    (no temperature above 0, read from the device last) over int8 self
+    pages with their ring, on one CUDA card (a mesh's gloo calls cannot be
+    captured). Everything else decodes eagerly."""
+    return (torch.device(device).type == "cuda" and self_kv_int8 and model.mesh is None
+            and not bool((temperature > 0).any()))
+
+
 @torch.no_grad()
 def transcribe_window(model: W.Whisper, cfg: RuleConfig, suppress_mask: torch.Tensor,
                       mel: torch.Tensor, prompt: torch.Tensor, temperature: torch.Tensor,
                       generator: torch.Generator | None = None,
                       sot_index: torch.Tensor | int = 0, n_audio_ctx: int | None = None,
                       prompt_len: torch.Tensor | None = None, cross_kv_int8: bool = False,
-                      self_kv_int8: bool = False) -> dict:
+                      self_kv_int8: bool = False, graphs: WindowGraphs | None = None) -> dict:
     """Encode one batch of windows and decode them to tokens.
 
     mel (B, T_mel, n_mels); prompt (B, P) right-padded, with prompt_len (B,)
     the true lengths; sot_index (B,) locates <|sot|> per row for the
     no-speech probability. cross_kv_int8: per-channel int8 cross-KV;
     self_kv_int8: int8 self-KV pages quantized at the ring's flush
-    boundaries (`W.decode_step`). Returns the `decode_loop` outputs plus
-    avg_logprob (B,) and no_speech_prob (B,)."""
+    boundaries (`W.decode_step`). graphs: where `graphs_engage`, the batch
+    is decoded in an entry of it (`WindowSteps`), its steps replayed from
+    CUDA graphs. Returns the `decode_loop` outputs plus avg_logprob (B,)
+    and no_speech_prob (B,)."""
     B, P = prompt.shape
     dev = prompt.device
+    steps = None
+    if graphs is not None and graphs_engage(model, dev, self_kv_int8, temperature):
+        steps = graphs.take(model, cfg, B, P, n_audio_ctx or mel.shape[1] // 2, cross_kv_int8,
+                            dev)
     if prompt_len is None:
         prompt_len = torch.full((B,), P, dtype=torch.long, device=dev)
-    with METRICS.span("decode.encode", device=dev):
-        enc = W.encode(model, mel, n_ctx_out=n_audio_ctx)
-    with METRICS.span("decode.cross_kv", device=dev):
-        cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens, cross_int8=cross_kv_int8,
-                             self_int8=self_kv_int8, ring_width=ring_width(cfg.max_new_tokens))
-    with METRICS.span("decode.prefill", device=dev):
-        prefill_logits = W.decode_prefill(model, prompt, cache)
-        rows = torch.arange(B, device=dev)
-        sot_idx = torch.as_tensor(sot_index, dtype=torch.long, device=dev).expand(B)
-        no_speech_prob = torch.softmax(prefill_logits[rows, sot_idx].float(),
-                                       dim=-1)[:, cfg.no_speech]
-        first_logits = prefill_logits[rows, prompt_len - 1]
-    with METRICS.span("decode.steps", device=dev):
-        out = decode_loop(model, cfg, suppress_mask, first_logits, cache, prompt_len, P,
-                          temperature, generator)
+    try:
+        with METRICS.span("decode.encode", device=dev):
+            enc = W.encode(model, mel, n_ctx_out=n_audio_ctx)
+        with METRICS.span("decode.cross_kv", device=dev):
+            if steps is None:
+                cache = W.init_cache(model, enc, t_cap=P + cfg.max_new_tokens,
+                                     cross_int8=cross_kv_int8, self_int8=self_kv_int8,
+                                     ring_width=ring_width(cfg.max_new_tokens))
+            else:
+                cache = steps.load(enc, prompt_len, suppress_mask)
+                prompt_len, suppress_mask = steps.prompt_len, steps.suppress
+            del enc
+        with METRICS.span("decode.prefill", device=dev):
+            prefill_logits = W.decode_prefill(model, prompt, cache)
+            rows = torch.arange(B, device=dev)
+            sot_idx = torch.as_tensor(sot_index, dtype=torch.long, device=dev).expand(B)
+            no_speech_prob = torch.softmax(prefill_logits[rows, sot_idx].float(),
+                                           dim=-1)[:, cfg.no_speech]
+            first_logits = prefill_logits[rows, prompt_len - 1]
+        with METRICS.span("decode.steps", device=dev):
+            out = decode_loop(model, cfg, suppress_mask, first_logits, cache, prompt_len, P,
+                              temperature, generator, steps=steps)
+    finally:
+        if steps is not None:
+            graphs.release(steps)
     out["avg_logprob"] = out["sum_logprob"] / (out["n_sampled"] + 1).float()
     out["no_speech_prob"] = no_speech_prob
     return out

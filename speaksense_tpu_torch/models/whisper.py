@@ -594,24 +594,32 @@ def quantize_cross_kv(ck: torch.Tensor, cv: torch.Tensor):
 
 
 @torch.no_grad()
-def compute_cross_kv(model: Whisper, enc_out: torch.Tensor, int8: bool = False):
+def compute_cross_kv(model: Whisper, enc_out: torch.Tensor, int8: bool = False,
+                     out: tuple | None = None):
     """f32 encoder states -> per-layer cross-attention K/V, (L, B, H, A, Dh)
     each, computed in f32 (`_linear_f32`) and stored in the compute dtype,
     as the reference's `compute_cross_kv(..., dtype=bf16)`. int8=True
     quantizes each layer's f32 K/V per channel instead and returns (kq, vq,
     ks, vs), the JAX `compute_cross_kv(..., int8=True)` contract. Computed
-    once per window batch or slot admission."""
+    once per window batch or slot admission. With `out` (a tuple of that
+    form, `zero_cross`), each layer is written into it in place and `out`
+    is returned: no second copy of the whole cross-KV is made."""
     n_head = model.n_text_head
     per_layer = []
-    for blk in model.decoder.blocks:
+    for i, blk in enumerate(model.decoder.blocks):
         k = _split_heads(_linear_f32(enc_out, blk.ck), n_head)
         v = _split_heads(_linear_f32(enc_out, blk.cv), n_head)
         if int8:
             (kq, ks), (vq, vs) = _quantize_frames(k), _quantize_frames(v)
-            per_layer.append((kq, vq, ks, vs))
+            layer = (kq, vq, ks, vs)
         else:
-            per_layer.append((k.to(model.dtype), v.to(model.dtype)))
-    return tuple(torch.stack(t) for t in zip(*per_layer))
+            layer = (k.to(model.dtype), v.to(model.dtype))
+        if out is None:
+            per_layer.append(layer)
+        else:
+            for dst, src in zip(out, layer, strict=True):
+                dst[i].copy_(src)
+    return out if out is not None else tuple(torch.stack(t) for t in zip(*per_layer))
 
 
 def zero_cross(model: Whisper, n_rows: int, n_audio_ctx: int, device,
@@ -865,8 +873,9 @@ def flush_ring(pages: KVCache, fcol: torch.Tensor, born: torch.Tensor):
 
 
 @torch.no_grad()
-def decode_step(model: Whisper, token: torch.Tensor, cache: KVCache, step: int,
-                prompt_len: torch.Tensor, gen_base: int) -> torch.Tensor:
+def decode_step(model: Whisper, token: torch.Tensor, cache: KVCache, step: int | torch.Tensor,
+                prompt_len: torch.Tensor, gen_base: int,
+                ring_n: int | None = None) -> torch.Tensor:
     """One autoregressive step for every row. token (B,); row b sits at
     position prompt_len[b] + step and writes its K/V at the shared column
     gen_base + step (gen_base = the padded prompt length P). Each row attends
@@ -881,7 +890,12 @@ def decode_step(model: Whisper, token: torch.Tensor, cache: KVCache, step: int,
     W, gen_base + step] (`flush_ring`), so the generated columns before the
     last W-aligned boundary are read in int8 and the rest in the compute
     dtype, as in the reference's `decode_loop(kv_write="ring")`. Returns f32
-    logits (B, V)."""
+    logits (B, V).
+
+    On int8 pages `step` may be a 0-d int64 tensor on the device, with
+    ring_n = step % W given from the host: the step then reads no host
+    value that changes from step to step, so a CUDA graph of it replays at
+    any step of its ring row (`decode.WindowSteps`)."""
     dec = model.decoder
     pos = prompt_len + step
     x = (dec.tok_emb[token] + dec.pos[pos])[:, None, :]
@@ -894,7 +908,7 @@ def decode_step(model: Whisper, token: torch.Tensor, cache: KVCache, step: int,
         x = _decoder_blocks(model, x, self_attn, _cross_attention(cache))
         return _decoder_tail(model, x)[:, 0, :]
     W = cache.ring_k.shape[3]
-    n = step % W
+    n = step % W if ring_n is None else ring_n
     ppad = torch.full_like(prompt_len, gen_base)
     fcol, born = ppad + (step - n), torch.zeros_like(prompt_len)
     mask_c, mask_r = ring_masks(cache, prompt_len, ppad, fcol, born, n)
