@@ -16,6 +16,8 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
+
 
 def short(name: str, width: int = 96) -> str:
     """A kernel's name without its return type, namespaces and arguments'
@@ -34,6 +36,10 @@ class Summary:
     kernels: dict = field(default_factory=dict)     # name -> device seconds in the window
     durations: dict = field(default_factory=dict)   # name -> [seconds of each launch]
     idle_gaps: list = field(default_factory=list)   # [[name, seconds], ...] longest first
+    # every interval of the window in which nothing ran on the device, in time
+    # order: (n, 2) [start_ns, end_ns] on `time.time_ns`, the clock of the
+    # program's spans
+    idle: np.ndarray = field(default_factory=lambda: np.zeros((0, 2), np.int64))
 
     def device_ops(self, top: int = 10) -> list:
         ranked = sorted(self.kernels.items(), key=lambda kv: -kv[1])[:top]
@@ -106,7 +112,7 @@ class DeviceTrace:
                      "events_span_s": (max(s + d for _, s, d in events) - events[0][1]) / 1e9}
         kernels: dict = {}
         durations: dict = {}
-        busy, gaps = 0, []
+        busy, gaps, idle = 0, [], []
         cur_end, cur_name = lo, "window start"
         for name, start, dur in events:
             s, e = max(start, lo), min(start + dur, hi)
@@ -116,12 +122,15 @@ class DeviceTrace:
             durations.setdefault(name, []).append(dur / 1e9)
             if s > cur_end:
                 gaps.append(((s - cur_end) / 1e9, cur_name))
+                idle += (cur_end, s)
             if e > cur_end:
                 busy += e - max(s, cur_end)
                 cur_end, cur_name = e, name
         if hi > cur_end:
             gaps.append(((hi - cur_end) / 1e9, cur_name))
+            idle += (cur_end, hi)
         gaps.sort(key=lambda g: -g[0])
         return Summary(window_s=(hi - lo) / 1e9, busy_s=busy / 1e9, kernels=kernels,
                        durations=durations,
-                       idle_gaps=[[f"after {short(name)}", sec] for sec, name in gaps[:top_gaps]])
+                       idle_gaps=[[f"after {short(name)}", sec] for sec, name in gaps[:top_gaps]],
+                       idle=np.asarray(idle, np.int64).reshape(-1, 2))

@@ -13,24 +13,33 @@ pace.
 The first batch warms up every shape the cell uses and ends set-up; the
 window opens at its completion and closes at the last batch completed
 within `seconds`. The rate is every window of the batches completed in
-between over that time. A traced run traces the stretch between the next
-two batch completions inside the window. Every batch encodes its windows,
-so that trace holds kernel #1's launches; one without them lost the
-batcher thread's kernels, and the stretch after the next is traced instead,
-up to `TRACE_TRIES` stretches.
+between over that time (`Served.audio_s` over `Served.seconds`). A traced
+run traces the stretch between the next two batch completions inside the
+window, started and stopped on the batcher's thread (`Stretches`). Every
+batch encodes its windows, so that trace holds kernel #1's launches; one
+without them lost the batcher thread's kernels, and the stretch after the
+next is traced instead, up to `TRACE_TRIES` stretches.
 
 Parameters (the traffic file): tasks, language, clips, audio_rms and
 level_spread (the recordings the windows are cut from and their levels,
 `clip_bank`), check_windows (answers the plain reference checks after the
 window; the longest is always among them).
+
+The faults it can have (`FAULTS`, planted by `planted` under a whole run,
+for the tests and `control.py`), each of which must turn `correct` false:
+a token altered where the decode loop returns it, a decode step that
+returns its state unchanged, and half of a batch left out. A cell on one
+card has no exchange between chips to leave out.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import math
 import queue
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -104,6 +113,11 @@ class Served:
     def seconds(self) -> float:
         return self.t_close - self.t_open
 
+    @property
+    def audio_s(self) -> float:
+        """Audio seconds answered in the window: 30 s a window."""
+        return 30.0 * len(self.windows)
+
     def timeline(self) -> dict:
         """Batch completions in seconds after the window opened, the batches
         inside the window and the traced ones."""
@@ -117,6 +131,52 @@ def holds_the_batch(tracer) -> bool:
     kernels: kernel #1's launches are among its device events."""
     s = tracer.summary()
     return s is not None and bool(s.launches_of(TRACE_HOLDS))
+
+
+class Stretches:
+    """The traced stretches of a run, each from one batch's completion to
+    the next's. Both ends are taken on the batcher's thread, in the first
+    completion callback of a batch (`at_completion`): there, between one
+    batch's delivery and the next batch's launches, no thread launches on
+    the card. (Started on the client thread while the batcher launched,
+    the profiler lost that thread's kernels in some runs.) The client
+    thread asks for a stretch (`want`), judges each that ended (`tries`)
+    and closes the run's tracing (`close`)."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.tries: list = []      # (first, last) batch of every stretch that ended
+        self._lock = threading.Lock()
+        self._after = None         # start at the first completion of a later batch
+        self._first = None         # the batch whose completion started the running one
+        self._closed = False
+        self.error: BaseException | None = None
+
+    def want(self, after: int) -> None:
+        with self._lock:
+            self._after = after
+
+    def at_completion(self, batch: int) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            try:
+                if self._first is not None and batch > self._first:
+                    self.tracer.stop()
+                    self.tries.append((self._first, batch))
+                    self._first = None
+                elif self._first is None and self._after is not None and batch > self._after:
+                    self.tracer.start()
+                    self._first, self._after = batch, None
+            except Exception as e:     # a future's callback swallows what it raises
+                self.error, self._closed = e, True
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            if self._first is not None:
+                self.tracer.stop()
+                self._first = None
 
 
 def emitted(answer: dict, max_new: int) -> int:
@@ -135,13 +195,17 @@ def serve(engine, traffic: dict, seed: int, seconds: float, tracer=None) -> Serv
     futures: dict = {}
     snaps: dict = {}
     lang = traffic["language"]
+    client = threading.get_ident()
+    stretches = Stretches(tracer) if tracer is not None else None
 
     def on_done(key, fut):
-        batch = serving.batches_run
+        t, batch = time.perf_counter(), serving.batches_run
         if fut.exception() is None and batch not in snaps:
             snaps[batch] = {**P.counters(), "batches_run": serving.batches_run,
                             "windows_run": serving.windows_run}
-        events.put((key, time.perf_counter(), batch, fut))
+            if stretches is not None and threading.get_ident() != client:
+                stretches.at_completion(batch)
+        events.put((key, t, batch, fut))
 
     def mel(task, index):
         return engine.compute_mel(window_audio(bank, seed, task, index))[0]
@@ -162,7 +226,7 @@ def serve(engine, traffic: dict, seed: int, seconds: float, tracer=None) -> Serv
         t_open = deadline = None
         open_batch = None
         trace_from = trace_to = None
-        tries: list = []
+        judged = 0
         while True:
             now = time.perf_counter()
             if deadline is not None and now >= deadline:
@@ -181,24 +245,25 @@ def serve(engine, traffic: dict, seed: int, seconds: float, tracer=None) -> Serv
             if t_open is None:
                 t_open, open_batch = t, batch
                 deadline = t_open + seconds
-            if tracer is not None and trace_to is None and len(tries) < TRACE_TRIES:
-                if tracer.running:
-                    if batch > trace_from:
-                        tracer.stop()
-                        tries.append((trace_from, batch))
-                        kept = holds_the_batch(tracer)
-                        print(f"trace of batches {trace_from} -> {batch}: {tracer.info}, "
-                              f"{'kept' if kept else 'no ' + TRACE_HOLDS + ' launch'}",
-                              file=sys.stderr)
-                        if kept:
-                            trace_to = batch
-                elif batch > (tries[-1][1] if tries else open_batch):
-                    tracer.start()
-                    trace_from = batch
+                if stretches is not None:
+                    stretches.want(open_batch)
+            if stretches is not None and stretches.error is not None:
+                raise RuntimeError("the device trace failed") from stretches.error
+            if stretches is not None and trace_to is None and len(stretches.tries) > judged:
+                begin, end = stretches.tries[judged]
+                judged += 1
+                kept = holds_the_batch(tracer)
+                print(f"trace of batches {begin} -> {end}: {tracer.info}, "
+                      f"{'kept' if kept else 'no ' + TRACE_HOLDS + ' launch'}",
+                      file=sys.stderr)
+                if kept:
+                    trace_from, trace_to = begin, end
+                elif judged < TRACE_TRIES:
+                    stretches.want(end)
             submit(key[0], key[1] + 1)
-        if tracer is not None and tracer.running:
-            tracer.stop()
     finally:
+        if stretches is not None:
+            stretches.close()
         serving.stop()
         cf.wait(list(futures.values()), timeout=STALL_S)
     t_end = time.perf_counter() + 60.0
@@ -228,7 +293,8 @@ def serve(engine, traffic: dict, seed: int, seconds: float, tracer=None) -> Serv
                   answers=answers, batch_of={k: done[k][1] for k in windows},
                   batch_t=batch_t, snaps=snaps, max_batch=serving.max_batch,
                   trace_batches=(trace_from, trace_to) if trace_to is not None else None,
-                  trace_tries=tries, window_batches=in_window, bank=bank)
+                  trace_tries=list(stretches.tries) if stretches is not None else [],
+                  window_batches=in_window, bank=bank)
 
 
 def sample(served: Served, seed: int, n: int, max_new: int) -> list:
@@ -241,12 +307,58 @@ def sample(served: Served, seed: int, n: int, max_new: int) -> list:
 
 
 CONTROLS = ("control", "control.encoder")
+# the check's readings (`summarize`), which a cell's limits file names
+READINGS = ("gap", "mean_gap", "no_speech_diff", "logprob_diff", "windows")
+FAULTS = ("token altered where produced", "step returns its state unchanged",
+          "half of the batch left out")
 
 
-def _row(gap: torch.Tensor, no_speech_diff: float) -> dict:
+@contextlib.contextmanager
+def planted(name: str):
+    """The fault `name` of `FAULTS` planted in the program's window path:
+    every window's third token swapped for another as the decode loop
+    returns it; every decode step returning its batch's first logits, so
+    the decoder never advances; or the second half of a batch's rows given
+    the first half's answers, their own never computed into them."""
+    from speaksense_tpu_torch.asr.engine import WhisperEngine
+    from speaksense_tpu_torch.models import decode as D
+    from speaksense_tpu_torch.models import whisper as W
+
+    if name == FAULTS[0]:
+        owner, attr, orig = D, "decode_loop", D.decode_loop
+
+        def broken(*a, **k):
+            out = orig(*a, **k)
+            out["tokens"][:, 2] = torch.where(out["tokens"][:, 2] == 17, 18, 17)
+            return out
+    elif name == FAULTS[1]:
+        owner, attr, orig = W, "decode_step", W.decode_step
+        first: dict = {}
+
+        def broken(model, token, cache, *a, **k):
+            if id(cache) not in first:
+                first[id(cache)] = orig(model, token, cache, *a, **k)
+            return first[id(cache)]
+    elif name == FAULTS[2]:
+        owner, attr, orig = WhisperEngine, "decode_windows", WhisperEngine.decode_windows
+
+        def broken(self, mels, *a, **k):
+            res = orig(self, mels, *a, **k)
+            h = len(res) // 2
+            return res[:h] + res[:h] + res[2 * h:]
+    else:
+        raise KeyError(name)
+    setattr(owner, attr, broken)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def _row(gap: torch.Tensor, no_speech_diff: float, logprob_diff: float) -> dict:
     g = gap.double()
     return {"tokens": g.numel(), "max": float(g.max()), "sum": float(g.sum()),
-            "ns": no_speech_diff}
+            "ns": no_speech_diff, "lp": logprob_diff}
 
 
 def summarize(rows: list) -> dict:
@@ -254,12 +366,26 @@ def summarize(rows: list) -> dict:
     in nats by which a served token lies below the reference's best;
     `mean_gap`, the gaps' mean over every served token; `no_speech_diff`,
     the widest difference between a window's no-speech log-probability
-    and the reference's."""
+    and the reference's; `logprob_diff`, the root mean square over the
+    windows of the difference between a window's average log-probability
+    and the reference's of the same tokens, which moves with every
+    token's error, not only where the best token changes; `windows`, the
+    number checked (a run that checked none is not correct). `tokens`
+    besides."""
     n = sum(r["tokens"] for r in rows)
     return {"gap": max((r["max"] for r in rows), default=0.0),
             "mean_gap": sum(r["sum"] for r in rows) / max(n, 1),
             "no_speech_diff": max((r["ns"] for r in rows), default=0.0),
+            "logprob_diff": math.sqrt(sum(r["lp"] ** 2 for r in rows) / max(len(rows), 1)),
             "tokens": n, "windows": len(rows)}
+
+
+def average_logprob(lp: torch.Tensor, tokens: list, n_sampled: int, vocab) -> float:
+    """A window's average log-probability of its served tokens under the
+    logits of `lp` (`history_logprobs`), as the program takes it: the sum
+    over every token it chose, end-of-text included, the timestamp forcing
+    applied, over `n_sampled + 1`."""
+    return float(R.served_logprobs(lp, tokens, vocab).double().sum()) / (n_sampled + 1)
 
 
 def check(served: Served, cfg: dict, traffic: dict, seed: int, device, weights: dict,
@@ -268,11 +394,11 @@ def check(served: Served, cfg: dict, traffic: dict, seed: int, device, weights: 
     plain reference: {"program": readings (`summarize`)}. Each name in
     `controls` adds the same readings of the reference one precision step
     down put in the program's place, read at the same prompts and tokens
-    (the gaps of the tokens it puts first at each position, and its
-    no-speech log-probability): "control" lowers the encoder and the
-    decoder (`lower=True`; keys and values at 4 bits where the
-    configuration holds them in int8), "control.encoder" the encoder
-    alone."""
+    (the gaps of the tokens it puts first at each position, its no-speech
+    log-probability, and its average log-probability of the served
+    tokens): "control" lowers the encoder and the decoder (`lower=True`;
+    keys and values at 4 bits where the configuration holds them in int8),
+    "control.encoder" the encoder alone."""
     s = R.Shape.from_config(cfg)
     dec = cfg["decoding"]
     vocab = R.Vocab.multilingual(s.n_vocab, blank=dec.get("blank_token"))
@@ -295,15 +421,20 @@ def check(served: Served, cfg: dict, traffic: dict, seed: int, device, weights: 
             logits = R.decoder_logits(weights, enc, fed, s)
             lp = R.history_logprobs(logits[len(prompt) - 1:], tokens, vocab, max_initial)
             ref_ns = R.no_speech_logprob(logits, vocab)
+            n_sampled = int(answer["n_sampled"])
+            ref_avg = average_logprob(lp, tokens, n_sampled, vocab)
             ns = math.log(max(float(answer["no_speech_prob"]), 1e-300))
-            rows["program"].append(_row(R.gaps(lp, tokens, vocab), abs(ns - ref_ns)))
+            rows["program"].append(_row(R.gaps(lp, tokens, vocab), abs(ns - ref_ns),
+                                        float(answer["avg_logprob"]) - ref_avg))
             low_enc = R.encode(weights, mel, s, lower=True) if controls else None
             for name in controls:
                 low = R.decoder_logits(weights, low_enc, fed, s, lower=name == "control",
                                        **kv_bits)
                 low_lp = R.history_logprobs(low[len(prompt) - 1:], tokens, vocab, max_initial)
                 rows[name].append(_row(R.gaps(lp, R.choices(low_lp, vocab), vocab),
-                                       abs(R.no_speech_logprob(low, vocab) - ref_ns)))
+                                       abs(R.no_speech_logprob(low, vocab) - ref_ns),
+                                       average_logprob(low_lp, tokens, n_sampled, vocab)
+                                       - ref_avg))
     return {name: summarize(r) for name, r in rows.items()}
 
 

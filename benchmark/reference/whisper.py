@@ -22,6 +22,9 @@ the token masks) is worked out here again from the published definitions:
 `gaps` measures a decoded sequence against these logits: for each served
 token, by how much its log-probability lies below the best the rules let
 through, the margin of the timestamp-forcing decision included.
+`served_logprobs` gives each served token's log-probability as a decoder
+that applies the rules samples it, the forcing included: what the
+program sums into a window's `avg_logprob`.
 
 `encode(..., lower=True)` and `decoder_logits(..., lower=True)` are the
 benchmark's control: the model one step below the served precision
@@ -364,6 +367,27 @@ def gaps(lp: torch.Tensor, served: list[int], vocab: Vocab) -> torch.Tensor:
         torch.where(forced, non_text - own,
                     torch.minimum(free_gap, torch.maximum(below - ts, non_text - own))))
     return gap.clamp(min=0.0)
+
+
+def served_logprobs(lp: torch.Tensor, served: list[int], vocab: Vocab) -> torch.Tensor:
+    """(n,) each greedily served token's log-probability after every rule,
+    the timestamp forcing included: where it holds, a timestamp or
+    end-of-text is renormalised over the tokens that are not text. Which
+    way the decoder went is read from the served token, so that a near tie
+    in the forcing does not count as the decoder's error: a text token is
+    never served under the forcing; a timestamp always is (one that beats
+    every other token makes the timestamps' total beat them too). An
+    end-of-text served without the forcing beat every text token, so it
+    was forced where the best token lies further above it than the
+    timestamps' total lies below the forcing: of the two ties it would
+    take, the nearer one decides."""
+    ts, below, _ = _forcing(lp, vocab)
+    tok = torch.as_tensor(served, dtype=torch.long, device=lp.device)
+    own = lp.gather(1, tok[:, None])[:, 0]
+    non_text = torch.logsumexp(lp[:, vocab.eot:], dim=-1)
+    eot_forced = lp.amax(dim=-1) - own > below - ts
+    forced = (tok >= vocab.ts_begin) | ((tok == vocab.eot) & eot_forced)
+    return torch.where(forced, own - non_text, own)
 
 
 def choices(lp: torch.Tensor, vocab: Vocab) -> list[int]:

@@ -37,9 +37,6 @@ if __name__ == "__main__" and sys.path and Path(sys.path[0]).resolve() == ROOT /
     sys.path[0] = str(ROOT)
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "speaksense_tpu")
-# the check's readings that a cell's limits hold, by their names in limits/<cell>.json
-COMPARED = {"max_logit_gap": "gap", "mean_logit_gap": "mean_gap",
-            "max_no_speech_logprob_diff": "no_speech_diff"}
 CACHE = ROOT / ".bench_cache"
 CACHE_ENV = {"TORCH_EXTENSIONS_DIR": "torch_extensions", "TRITON_CACHE_DIR": "triton",
              "CUDA_CACHE_PATH": "cuda", "TORCHINDUCTOR_CACHE_DIR": "inductor",
@@ -71,11 +68,21 @@ def _finite(x: float) -> float:
 
 
 def judge(readings: dict, limits: dict, failed: int) -> tuple[bool, dict]:
-    """`correct` and the checks: each compared reading beside its limit."""
-    checks = {name: {"value": _finite(readings[key]), "limit": limits[name]["limit"]}
-              for name, key in COMPARED.items()}
+    """`correct` and the checks: every comparison of the cell's limits file
+    (`limits/<cell>.json`, {name: {"reading": key of the generator's
+    readings, "limit": ...}}), its reading beside its limit, and `failed`
+    beside 0. A reading the run does not give is null and fails; a limits
+    file that compares nothing fails too."""
+    checks = {}
+    for name, entry in limits.items():
+        value = readings.get(entry["reading"])
+        checks[name] = {"value": None if value is None else _finite(value),
+                        "limit": entry["limit"]}
+    compared = bool(checks)
     checks["failed"] = {"value": failed, "limit": 0}
-    correct = readings["windows"] > 0 and all(c["value"] <= c["limit"] for c in checks.values())
+    correct = (compared and readings.get("windows", 0) > 0
+               and all(c["value"] is not None and c["value"] <= c["limit"]
+                       for c in checks.values()))
     return bool(correct), checks
 
 

@@ -11,7 +11,8 @@ reading of the window path:
 - `off_device_ms`: the batcher thread's host ms from the end of one
   batch's last `engine.attempt` to the start of the next batch's first;
 - `idle_in(idle, spans, "decode.steps")`: the trace's idle ns inside the
-  batcher thread's decode steps;
+  batcher thread's decode steps, `idle` being the traced window's idle
+  intervals (`devtrace.Summary.idle`);
 - `idle_by_span`: each idle interval split by the innermost span open on
   the batcher thread, with the part during another thread's `engine.mel`.
 
@@ -127,22 +128,6 @@ def span_readings(spans: list[dict], batches: list[int]) -> dict:
 
 
 # ------------------------------------------------------------ device trace
-
-
-def idle_intervals(events, lo: int, hi: int) -> list[tuple[int, int]]:
-    """The intervals of [lo, hi] (ns) in which no device event runs;
-    events are (start_ns, duration_ns)."""
-    out, cur = [], lo
-    for start, dur in sorted(events):
-        s, e = max(start, lo), min(start + dur, hi)
-        if e <= s:
-            continue
-        if s > cur:
-            out.append((cur, s))
-        cur = max(cur, e)
-    if hi > cur:
-        out.append((cur, hi))
-    return out
 
 
 def _union(intervals) -> list[tuple[int, int]]:

@@ -133,13 +133,19 @@ def test_new_files_are_found_by_name(tmp_path):
 
 
 def test_benchmark_json_names_its_files():
+    """Every cell's metrics have readers, and every entry of its limits
+    file names a reading of its traffic's generator, with a finite limit."""
     bench = spec.load_json(spec.ROOT / "BENCHMARK.json")
     for w in bench["workloads"]:
         c = spec.cell(bench, w["name"])
         assert c.end_to_end and c.per_layer
         for m in c.end_to_end + c.per_layer:
             assert (spec.HERE / "metrics" / f"{m['name']}.py").is_file()
-        assert math.isfinite(c.limits["max_logit_gap"]["limit"])
+        gen = spec.generator(c.traffic["generator"])
+        assert c.limits
+        for name, entry in c.limits.items():
+            assert entry["reading"] in gen.READINGS, (w["name"], name)
+            assert math.isfinite(entry["limit"]), (w["name"], name)
 
 
 def test_profiler_stretch_and_untraced_idle():

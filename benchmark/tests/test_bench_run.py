@@ -13,7 +13,8 @@ import sys
 import pytest
 import torch
 
-from benchmark import faults, run, spec
+from benchmark import run, spec
+from benchmark.generators import window_backlog as B
 from benchmark.tests import tiny
 
 SEED = 3_000_000_019        # larger than 32 signed bits hold
@@ -38,7 +39,7 @@ def test_last_line_shape(sound):
     assert line["device"] == {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1,
                               "memory_peak_bytes": 0}
     assert list(line["checks"]) == ["max_logit_gap", "mean_logit_gap",
-                                    "max_no_speech_logprob_diff", "failed"]
+                                    "max_no_speech_logprob_diff", "rms_logprob_diff", "failed"]
     assert all(set(c) == {"value", "limit"} for c in line["checks"].values())
     json.loads(json.dumps(line))
 
@@ -70,20 +71,19 @@ def test_int8_weights_are_not_correct():
     assert out["correct"] is False, out["checks"]
 
 
-@pytest.mark.parametrize("fault", faults.FAULTS)
+@pytest.mark.parametrize("fault", B.FAULTS)
 def test_fault_is_not_correct(fault):
     """Every answer of the window is checked here, so a fault in any row
     shows; on the card the sample of 64 is drawn from the seed."""
-    with faults.planted(fault):
-        out = _run(tiny.cell(check_windows=64))
+    cell = tiny.cell(check_windows=64)
+    with spec.generator(cell.traffic["generator"]).planted(fault):
+        out = _run(cell)
     assert out["correct"] is False, (fault, out["checks"])
 
 
 def test_seed_gives_the_same_answers(monkeypatch):
     """Two runs of one seed serve the same windows the same tokens (which
     windows fall inside the window follows the host's clock)."""
-    from benchmark.generators import window_backlog as B
-
     got = []
     drive = B.serve
 

@@ -125,12 +125,6 @@ def test_span_readings_are_medians_over_the_kept_batches():
     assert S.span_readings(spans, [42]) == {}
 
 
-def test_idle_intervals_of_a_window():
-    events = [(10, 5), (12, 10), (40, 5), (90, 30)]
-    assert S.idle_intervals(events, 0, 100) == [(0, 10), (22, 40), (45, 90)]
-    assert S.idle_intervals([], 0, 100) == [(0, 100)]
-
-
 def test_idle_in_steps_and_by_span_sum_to_the_idle():
     """Idle split by the innermost batcher span: entries and `(none)` sum to
     the idle; the part under steps is what lies inside `decode.steps`;

@@ -10,7 +10,12 @@ of 0.0013-0.0039; the reference lowered in the program's place
 decoder weights 0.0026-0.0089, 2.0e-6 to 1.2e-4 and 0.0013-0.0060, above
 the mean gap's limit on 7 of the 12 seeds (at this size their error is
 not always larger than the served path's); the planted faults 0.166 or
-more on one number or both."""
+more on one number or both. The log-probability difference (RMS over the
+windows, every answered window of 12 seeds: 3000000019, 45, 100-109)
+reads 9.7e-5 to 2.8e-4 in sound runs, 4.0e-3 to 2.0e-2 with the lowered
+reference, 1.3e-3 to 1.8e-2 with its encoder alone, 2.8e-4 to 2.6e-3 with
+the int8 decoder weights (above its limit on 4 of the 12 seeds), and
+5.2e-3 or more under each planted fault (seeds 3000000019 and 7)."""
 
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ def cell(**traffic):
     cfg["decoding"]["max_new_tokens"] = 134
     c.config = cfg
     c.traffic = {**c.traffic, "tasks": 8, "clips": 16, "check_windows": 4, **traffic}
-    c.limits = {"max_logit_gap": {"limit": 0.015}, "mean_logit_gap": {"limit": 2e-5},
-                "max_no_speech_logprob_diff": {"limit": 0.008}}
+    c.limits = {"max_logit_gap": {"reading": "gap", "limit": 0.015},
+                "mean_logit_gap": {"reading": "mean_gap", "limit": 2e-5},
+                "max_no_speech_logprob_diff": {"reading": "no_speech_diff", "limit": 0.008},
+                "rms_logprob_diff": {"reading": "logprob_diff", "limit": 7e-4}}
     return c
